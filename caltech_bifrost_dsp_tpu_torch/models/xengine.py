@@ -1,0 +1,142 @@
+"""The fused X-engine step (port of ``caltech_bifrost_dsp_tpu/models/
+xengine.py``).
+
+    packed 4+4-bit gulp ──┬─ corr_acc ── fast acc ──┬─ subsel (+chan sum)
+                          │                         └─ slow acc
+                          └─ beamform_products ──┬─ dual-pol power
+                                                 └─ VLBI voltages
+
+Boundary flags are Python bools, so there is one path: the JAX step's
+static-flag branch (xengine.py:191-210), three kernels on CUDA tensors and
+their plain versions on CPU tensors.  The accumulators live in an
+:class:`XEngineState` at the true input width and are updated IN PLACE by
+:func:`xengine_step`; the returned state holds the same tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from caltech_bifrost_dsp_tpu.config import XEngineConfig
+
+from ..ops import corr_subsel as cs
+from ..ops.beamform import BeamGains, beamform_products
+from ..ops.corr_acc import corr_acc
+from ..ops.correlate import Vis, mirror_vis, zero_vis
+
+
+class XEngineState(NamedTuple):
+    vis_fast: Vis   # int32 [nchan, ninput, ninput], entries j >= i valid
+    vis_slow: Vis   # int32 [nchan, ninput, ninput], entries j >= i valid
+
+
+class XEngineOutputs(NamedTuple):
+    subsel: Vis | None             # int32 [nchan//nchan_sum, nvis_out]
+    bf_power: torch.Tensor | None  # f32 [nbeam//2, ntime//ntime_sum,
+                                   #      nchan, 4]
+    vlbi: torch.Tensor | None      # f32 [ntime, nchan, 2, 2]
+
+
+def init_state(cfg: XEngineConfig, device=None) -> XEngineState:
+    return XEngineState(zero_vis(cfg.nchan, cfg.ninput, device),
+                        zero_vis(cfg.nchan, cfg.ninput, device))
+
+
+def xengine_step(state: XEngineState,
+                 packed: torch.Tensor,
+                 gains: BeamGains,
+                 subsel_pairs: torch.Tensor,
+                 fast_first: bool,
+                 fast_last: bool,
+                 slow_first: bool,
+                 cfg: XEngineConfig,
+                 want_power: bool = True,
+                 want_vlbi: bool = True,
+                 want_subsel: bool = True,
+                 layout: str = "tci"
+                 ) -> tuple[XEngineState, XEngineOutputs]:
+    """Process one gulp or whole accumulation.
+
+    Args:
+      state: accumulators, updated in place.
+      packed: uint8 [ntime, nchan, ninput] (``layout="tci"``, the capture
+        order) or [nchan, ntime, ninput|padded] (``layout="cti"``; pad
+        lanes are don't-care).
+      gains: f32 planes [nchan, nbeam, ninput].
+      subsel_pairs: int32 [nvis_out, 2] baseline-selection input pairs;
+        out-of-range entries clamp to ``cfg.ninput - 1``.
+      fast_first: this call begins a fast accumulation (overwrite).
+      fast_last: this call completes a fast accumulation; subsel is
+        produced and the slow accumulator ingests the fast matrix.
+      slow_first: the completed fast dump begins a new slow accumulation.
+      want_power / want_vlbi / want_subsel: compute that product at all.
+
+    Returns:
+      (state, outputs); ``outputs.subsel`` is None unless ``fast_last``.
+    """
+    fast, slow = state
+    corr_acc(packed, fast, slow, fast_first, fast_last, slow_first,
+             layout=layout)
+    subsel = None
+    if want_subsel and fast_last:
+        subsel = cs.corr_subsel(fast, subsel_pairs, cfg.nchan_sum)
+    power, vlbi = beamform_products(packed, gains, cfg.ntime_sum,
+                                    want_power, want_vlbi, layout=layout)
+    return state, XEngineOutputs(subsel, power, vlbi)
+
+
+def dense_vis(vis: Vis, cfg: XEngineConfig) -> Vis:
+    """Accumulator -> full Hermitian matrix [nchan, ninput, ninput]
+    (mirrors the upper-valid half).  Called per dump, off the hot path."""
+    if vis.ninput != cfg.ninput:
+        raise ValueError("state width differs from cfg.ninput")
+    return mirror_vis(vis)
+
+
+def default_inputs(cfg: XEngineConfig, seed: int = 0, device=None):
+    """State + example inputs: random packed tci gulp, unit gains and the
+    production-shaped baseline selection (autos cycling for configs too
+    small to hold it) -- the same draws as the JAX ``default_inputs``."""
+    rng = np.random.RandomState(seed)
+    packed = torch.from_numpy(rng.randint(
+        0, 255, [cfg.ntime_gulp, cfg.nchan, cfg.ninput]).astype(np.uint8))
+    gains = BeamGains(
+        torch.ones((cfg.nchan, cfg.nbeam, cfg.ninput), dtype=torch.float32,
+                   device=device),
+        torch.zeros((cfg.nchan, cfg.nbeam, cfg.ninput), dtype=torch.float32,
+                    device=device))
+    pairs = torch.from_numpy(cs.baselines_to_inputs(
+        cs.production_baselines(cfg.nvis_out, cfg.nstand, cfg.npol),
+        cfg.npol).astype(np.int32))
+    return (init_state(cfg, device), packed.to(device), gains,
+            pairs.to(device))
+
+
+def state_from_numpy(state, cfg: XEngineConfig, device=None) -> XEngineState:
+    """Carry a JAX ``XEngineState`` into the port.
+
+    ``state`` is ``((fast_real, fast_imag), (slow_real, slow_imag))`` as
+    numpy arrays (``jax.device_get`` of a JAX state has that structure).
+    Planes wider than ``cfg.ninput`` -- the JAX block engine's 256-padded
+    width -- are sliced to ``ninput``.
+    """
+    n = cfg.ninput
+
+    def plane(a):
+        a = np.ascontiguousarray(np.asarray(a, dtype=np.int32)[:, :n, :n])
+        return torch.from_numpy(a).to(device)
+
+    (fr, fi), (sr, si) = state
+    return XEngineState(Vis(plane(fr), plane(fi)), Vis(plane(sr), plane(si)))
+
+
+def gains_from_numpy(real, imag, device=None) -> BeamGains:
+    """Raw gain planes [nchan, nbeam, ninput] (numpy) -> BeamGains."""
+    def plane(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, dtype=np.float32))).to(device)
+
+    return BeamGains(plane(real), plane(imag))
