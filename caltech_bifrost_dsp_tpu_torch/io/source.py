@@ -1,5 +1,5 @@
-"""Synthetic gulp source (port of ``caltech_bifrost_dsp_tpu/io/source.py::
-DummySource`` without its throughput throttle).
+"""Synthetic sources (port of ``caltech_bifrost_dsp_tpu/io/source.py::
+DummySource`` without its throughput throttle, and ``ADCSource``).
 
 Modes follow the reference's DummySource (dummy_source_block.py):
 ``ramp`` (byte counter), ``random`` (``randint(0, 255)`` from a seeded
@@ -66,6 +66,56 @@ class SyntheticSource:
     def stream(self, ngulp: int, seq0: int = 0):
         """Yield ``(t, gulp)`` with t the gulp's first spectra index;
         ``ngulp == 0`` runs forever."""
+        i = 0
+        while ngulp == 0 or i < ngulp:
+            yield seq0 + i * self.cfg.ntime_gulp, self.gulp(i)
+            i += 1
+
+
+class ADCSource:
+    """Raw ADC sample generator for the FX (channelizer-included) mode.
+
+    Emits gulps of ``ntime_gulp * 2 * nchan`` ADC samples, [nsamp,
+    ninput], in ``cfg.adc_dtype`` (float32, or int8 where the signal is
+    rounded to integer counts and clipped to [-127, 127]).  Modes:
+    ``noise`` (``standard_normal * amplitude`` from a seeded RandomState,
+    drawn in call order) or ``tone``, a cosine in channel ``tone_chan`` on
+    every input.  The same seed gives the JAX ``ADCSource``'s bytes.
+    """
+
+    def __init__(self, cfg: XEngineConfig, mode: str = "noise",
+                 tone_chan: int = 5, amplitude: float = 4.0,
+                 seed: int = 0xF00D):
+        if mode not in ("noise", "tone"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.cfg = cfg
+        self.mode = mode
+        self.tone_chan = tone_chan
+        self.amplitude = amplitude
+        self.dtype = cfg.adc_np_dtype
+        self._rng = np.random.RandomState(seed)
+        self.samples_per_gulp = cfg.ntime_gulp * 2 * cfg.nchan
+
+    def _cast(self, x: np.ndarray) -> np.ndarray:
+        if self.dtype == np.int8:
+            return np.clip(np.rint(x), -127, 127).astype(np.int8)
+        return x.astype(np.float32)
+
+    def gulp(self, index: int) -> np.ndarray:
+        """ADC gulp ``index``: [ntime_gulp * 2 * nchan, ninput]."""
+        cfg = self.cfg
+        n = self.samples_per_gulp
+        if self.mode == "tone":
+            t = np.arange(index * n, (index + 1) * n, dtype=np.float64)
+            x = self.amplitude * np.cos(
+                2 * np.pi * self.tone_chan / (2 * cfg.nchan) * t)
+            return np.ascontiguousarray(np.broadcast_to(
+                self._cast(x)[:, None], (n, cfg.ninput)))
+        return self._cast(self._rng.standard_normal([n, cfg.ninput])
+                          * self.amplitude)
+
+    def stream(self, ngulp: int, seq0: int = 0):
+        """Yield ``(t, gulp)``; ``ngulp == 0`` runs forever."""
         i = 0
         while ngulp == 0 or i < ngulp:
             yield seq0 + i * self.cfg.ntime_gulp, self.gulp(i)

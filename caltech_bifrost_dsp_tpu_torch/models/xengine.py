@@ -1,5 +1,7 @@
-"""The fused X-engine step (port of ``caltech_bifrost_dsp_tpu/models/
-xengine.py``).
+"""The fused X-engine step and its FX variant (port of
+``caltech_bifrost_dsp_tpu/models/xengine.py``).
+
+    raw ADC ── pfb_quantize_packed ── packed bytes ─┐   (fx_step only)
 
     packed 4+4-bit gulp ──┬─ corr_acc ── fast acc ──┬─ subsel (+chan sum)
                           │                         └─ slow acc
@@ -23,6 +25,7 @@ import torch
 from caltech_bifrost_dsp_tpu.config import XEngineConfig
 
 from ..ops import corr_subsel as cs
+from ..ops import pfb as pfb_ops
 from ..ops.beamform import BeamGains, beamform_products
 from ..ops.corr_acc import corr_acc
 from ..ops.correlate import Vis, mirror_vis, zero_vis
@@ -86,6 +89,46 @@ def xengine_step(state: XEngineState,
     power, vlbi = beamform_products(packed, gains, cfg.ntime_sum,
                                     want_power, want_vlbi, layout=layout)
     return state, XEngineOutputs(subsel, power, vlbi)
+
+
+def fx_step(state: XEngineState,
+            adc: torch.Tensor,
+            window: torch.Tensor,
+            quant_scale,
+            gains: BeamGains,
+            subsel_pairs: torch.Tensor,
+            fast_first: bool,
+            fast_last: bool,
+            slow_first: bool,
+            cfg: XEngineConfig,
+            want_power: bool = True,
+            want_vlbi: bool = True,
+            want_subsel: bool = True,
+            layout: str = "tci"
+            ) -> tuple[XEngineState, XEngineOutputs]:
+    """FX variant: raw ADC -> PFB -> 4-bit requant -> X/B step.
+
+    Args:
+      adc: f32 or int8 [(ntime + pfb_ntap - 1) * 2 * nchan, ninput] real
+        ADC samples, the first ntap-1 frames being the FIR history carried
+        from the previous call.  int8 gives the same products as the same
+        values in f32.
+      window: f32 [pfb_ntap, 2*nchan] prototype filter.
+      quant_scale: scalar or per-channel [nchan] requant gain.
+
+    The input-major packed bytes are corner-turned to ``layout`` ("tci"
+    [ntime, nchan, ninput] or "cti" [nchan, ntime, ninput]) with one
+    permute, as the JAX step does (xengine.py:298-299); every
+    ``cfg.pfb_fft_impl`` takes the one channelizer.
+    """
+    if layout not in ("tci", "cti"):
+        raise ValueError(f"unknown layout {layout!r}")
+    pk = pfb_ops.channelize_pack_imajor(adc, window, cfg, quant_scale)
+    order = (2, 1, 0) if layout == "cti" else (1, 2, 0)
+    packed = pk.permute(*order).contiguous()
+    return xengine_step(state, packed, gains, subsel_pairs, fast_first,
+                        fast_last, slow_first, cfg, want_power, want_vlbi,
+                        want_subsel, layout)
 
 
 def dense_vis(vis: Vis, cfg: XEngineConfig) -> Vis:

@@ -34,6 +34,10 @@ SIGNATURES = {
     "cbd_beamform_products": (_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P,
                               _P, _P),
     "cbd_subsel_gather": (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
+    "cbd_pfb_direct": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+                       _I, _P, _P),
+    "cbd_pfb_factored": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _I, _P, _I, _P, _P),
 }
 
 

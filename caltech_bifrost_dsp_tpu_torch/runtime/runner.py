@@ -1,13 +1,20 @@
-"""Streaming runner for the fused X/B step.
+"""Streaming runner for the fused X/B step and its FX variant.
 
 The compute loop of ``caltech_bifrost_dsp_tpu/runtime/driver.py:878-987``
 without its threads, rings, command blocks and sinks: two
 :class:`IntegrationController` s decide the boundary flags, a whole fast
 accumulation goes to the device in ONE step call (per-gulp fallback for a
-partial accumulation), the packed window is uploaded from pinned host
-memory, and products come back as numpy.  An optional golden checkfile
-gates every slow dump by exact equality, the behaviour of the JAX
+partial accumulation), the window is uploaded from pinned host memory,
+and products come back as numpy.  An optional golden checkfile gates every
+slow dump by exact equality, the behaviour of the JAX
 ``CorrFullOutput(checkfile=...)`` (io/sink.py:164-196).
+
+FX mode (``fx=True``) takes raw ADC gulps [ntime_gulp * 2 * nchan,
+ninput] and runs :func:`..models.xengine.fx_step`.  The PFB's FIR history,
+the last (ntap - 1) frames of the previous call, is carried on the host
+and staged in front of each call's samples, as the JAX driver does
+(driver.py:735-738): zeros at stream start and after a sequence break
+(:meth:`XEngineRunner.new_sequence`), empty for ntap == 1.
 """
 
 from __future__ import annotations
@@ -21,9 +28,19 @@ from caltech_bifrost_dsp_tpu.config import XEngineConfig
 from caltech_bifrost_dsp_tpu.runtime.arming import (Action,
                                                     IntegrationController)
 
-from ..models.xengine import dense_vis, init_state, xengine_step
+from ..models.xengine import dense_vis, fx_step, init_state, xengine_step
 from ..ops import corr_subsel as cs
 from ..ops.beamform import BeamGains
+from ..ops.pfb import pfb_window
+
+
+def fx_scale(quant_scale: float, eq_gains=None) -> np.ndarray:
+    """Requant gain of the FX step: ``eq_gains * quant_scale`` per channel
+    (float32 product), or ``quant_scale`` alone (driver.py:197-204)."""
+    scale = np.float32(quant_scale)
+    if eq_gains is not None and len(eq_gains):
+        return np.asarray(eq_gains, np.float32) * scale
+    return np.asarray(scale)
 
 
 class XEngineRunner:
@@ -39,12 +56,17 @@ class XEngineRunner:
       autostartat: first armed spectra index of both integrators.
       checkfile / checkfile_acc_len: golden correlation file and its
         integration length; every slow dump is compared exactly.
+      fx: gulps are raw ADC samples in ``cfg.adc_dtype``.
+      quant_scale / eq_gains: FX requant gain, see :func:`fx_scale`.
+      adc_tail: FX FIR history to start from, [(ntap-1)*2*nchan, ninput]
+        (the JAX driver's ``_adc_tail``); zeros when omitted.
     """
 
     def __init__(self, cfg: XEngineConfig, device="cuda",
                  gains: BeamGains | None = None, subsel_pairs=None,
                  autostartat: int = 0, checkfile: str | None = None,
-                 checkfile_acc_len: int = 2400):
+                 checkfile_acc_len: int = 2400, fx: bool = False,
+                 quant_scale: float = 1.0, eq_gains=None, adc_tail=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.state = init_state(cfg, self.device)
@@ -70,15 +92,45 @@ class XEngineRunner:
         self.check_failures = 0
         self.ndump_fast = 0
         self.ndump_slow = 0
-        # one fast window of pinned host memory: the source of every H2D
+        self.fx = fx
         pinned = self.device.type == "cuda"
-        self._staging = torch.empty((cfg.acc_len, cfg.nchan, cfg.ninput),
-                                    dtype=torch.uint8, pin_memory=pinned)
+        if fx:
+            self.window = torch.from_numpy(
+                pfb_window(cfg.nchan, cfg.pfb_ntap)).to(self.device)
+            self.scale = torch.from_numpy(fx_scale(quant_scale, eq_gains)) \
+                .to(self.device)
+            shape = ((cfg.pfb_ntap - 1) * 2 * cfg.nchan, cfg.ninput)
+            if adc_tail is None:
+                adc_tail = np.zeros(shape, cfg.adc_np_dtype)
+            if np.shape(adc_tail) != shape:
+                raise ValueError(f"adc_tail must be {shape}")
+            self.adc_tail = np.array(adc_tail, dtype=cfg.adc_np_dtype)
+            # FIR history + one fast window of ADC, pinned
+            self._staging = torch.from_numpy(np.empty(
+                (shape[0] + cfg.acc_len * 2 * cfg.nchan, cfg.ninput),
+                cfg.adc_np_dtype))
+            if pinned:
+                self._staging = self._staging.pin_memory()
+        else:
+            # one fast window of pinned host memory: the source of every H2D
+            self._staging = torch.empty(
+                (cfg.acc_len, cfg.nchan, cfg.ninput), dtype=torch.uint8,
+                pin_memory=pinned)
         self._h2d_done = None
 
+    def new_sequence(self, t: int) -> None:
+        """An upstream stream break before spectra index ``t``: realign
+        both integrators (driver.py:897-907) and restart the FX FIR
+        history at zero, so the filter never convolves across the gap."""
+        if self.fx:
+            self.adc_tail = np.zeros_like(self.adc_tail)
+        self.fast_ctrl.on_sequence_start(t)
+        self.slow_ctrl.on_sequence_start(max(t, self.fast_ctrl.start_time))
+
     def run(self, stream):
-        """Consume ``(t, gulp)`` pairs (gulp uint8 [ntime_gulp, nchan,
-        ninput]) and yield one products dict per device call."""
+        """Consume ``(t, gulp)`` pairs of one sequence (gulp uint8
+        [ntime_gulp, nchan, ninput], or in FX mode ADC [ntime_gulp * 2 *
+        nchan, ninput]) and yield one products dict per device call."""
         cfg = self.cfg
         fast, slow = self.fast_ctrl, self.slow_ctrl
         slow_dec = None
@@ -109,28 +161,48 @@ class XEngineRunner:
             batch = []
 
     def _upload(self, gulps) -> torch.Tensor:
-        g = self.cfg.ntime_gulp
+        """Stage ``gulps`` (behind the FIR history in FX mode) and start
+        their copy to the device."""
+        cfg = self.cfg
         if self._h2d_done is not None:
             # the previous upload must have left the staging memory
             self._h2d_done.synchronize()
-        host = self._staging[:len(gulps) * g]
+        if self.fx:
+            g = cfg.ntime_gulp * 2 * cfg.nchan
+            dtype = cfg.adc_np_dtype
+            head = len(self.adc_tail)
+            host = self._staging[:head + len(gulps) * g]
+            host[:head].copy_(torch.from_numpy(self.adc_tail))
+        else:
+            g = cfg.ntime_gulp
+            dtype = np.uint8
+            head = 0
+            host = self._staging[:len(gulps) * g]
         for k, gulp in enumerate(gulps):
-            host[k * g:(k + 1) * g].copy_(torch.from_numpy(
-                np.ascontiguousarray(gulp, dtype=np.uint8)))
+            host[head + k * g:head + (k + 1) * g].copy_(torch.from_numpy(
+                np.ascontiguousarray(gulp, dtype=dtype)))
+        if self.fx and head:
+            # the last (ntap-1) frames become the next call's history
+            self.adc_tail = host[len(host) - head:].numpy().copy()
         if self.device.type != "cuda":
             return host
-        packed = host.to(self.device, non_blocking=True)
+        block = host.to(self.device, non_blocking=True)
         self._h2d_done = torch.cuda.Event()
         self._h2d_done.record()
-        return packed
+        return block
 
     def _step(self, gulps, t, is_first, dec, slow_dec) -> dict:
         cfg = self.cfg
         is_dump = dec.action == Action.DUMP
-        packed = self._upload(gulps)
-        self.state, out = xengine_step(
-            self.state, packed, self.gains, self.subsel_pairs, is_first,
-            is_dump, slow_dec.is_first, cfg)
+        block = self._upload(gulps)
+        if self.fx:
+            self.state, out = fx_step(
+                self.state, block, self.window, self.scale, self.gains,
+                self.subsel_pairs, is_first, is_dump, slow_dec.is_first, cfg)
+        else:
+            self.state, out = xengine_step(
+                self.state, block, self.gains, self.subsel_pairs, is_first,
+                is_dump, slow_dec.is_first, cfg)
         products = {"seq0": t, "bf_power": out.bf_power.cpu().numpy(),
                     "vlbi": out.vlbi.cpu().numpy()}
         if not is_dump:

@@ -1,10 +1,13 @@
 """X-engine pipeline CLI for the PyTorch port.
 
 The analog of ``caltech_bifrost_dsp_tpu/scripts/pipeline.py`` for its
-geometry and golden-verification flags: a synthetic source feeds
+geometry, golden-verification and FX flags: a synthetic source feeds
 :class:`..runtime.runner.XEngineRunner`, and ``--testdatacorr`` gates every
-slow dump by exact equality (exit 1 on a mismatch).  UDP capture, sinks and
-the control plane are not ported yet, so ``--fakesource`` is required.
+slow dump by exact equality (exit 1 on a mismatch).  ``--fx`` feeds raw
+ADC samples (noise, or a tone with ``--fx-tone-chan``) through the PFB
+channelizer in front of the X/B step.  UDP capture, sinks and the control
+plane are not ported yet, so ``--fakesource`` is required;
+``--save-slow`` keeps the last slow dump as an ``.npz`` file.
 
 Examples::
 
@@ -15,6 +18,12 @@ Examples::
   # the same on the CPU, through the plain versions of the kernels
   python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline --fakesource \\
       --testdatain in.dat --testdatacorr corr.dat --ngulp 20 --device cpu
+
+  # FX mode: a tone in channel 9 through the channelizer, on the CPU
+  python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline --fakesource \\
+      --fx --fx-tone-chan 9 --nstand 8 --nchan 32 --ntime_gulp 48 \\
+      --acc_len 96 --acc_len_slow 192 --nbeam 4 --ngulp 8 --device cpu \\
+      --save-slow slow.npz
 """
 
 from __future__ import annotations
@@ -23,11 +32,12 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
 from caltech_bifrost_dsp_tpu.config import LWA352, XEngineConfig
 
-from ..io.source import SyntheticSource
+from ..io.source import ADCSource, SyntheticSource
 from ..runtime.runner import XEngineRunner
 
 
@@ -57,7 +67,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda runs the kernels; cpu runs their plain "
                         "versions")
+    p.add_argument("--save-slow", type=str, default=None, metavar="FILE",
+                   help="write the last slow dump (real, imag int32 "
+                        "[nchan, ninput, ninput]) to this .npz file")
+    p.add_argument("--fx", action="store_true",
+                   help="FX mode: the source provides raw ADC samples; "
+                        "the step prepends PFB channelization")
+    p.add_argument("--pfb-impl", type=str, default="matmul",
+                   choices=["matmul", "fft"],
+                   help="accepted for the JAX CLI's sake: both compute "
+                        "the same transform through the one channelizer")
+    p.add_argument("--pfb-precision", type=str, default="high",
+                   choices=["high", "bf16"],
+                   help="DFT operands in float32, or rounded to bf16")
+    p.add_argument("--adc-dtype", type=str, default="float32",
+                   choices=["float32", "int8"],
+                   help="FX raw ADC sample dtype (int8 is the digitizer "
+                        "width; same products for integer values)")
+    p.add_argument("--quant-scale", type=float, default=1.0,
+                   help="FX 4-bit requantization gain")
+    p.add_argument("--eq-gains", type=str, default=None, metavar="FILE",
+                   help="FX per-channel EQ gains: .npy or text file of "
+                        "nchan positive floats (multiplied into "
+                        "--quant-scale)")
+    p.add_argument("--fx-tone-chan", type=int, default=-1,
+                   help="FX fakesource: put a test tone in this channel")
+    p.add_argument("--adc-amplitude", type=float, default=None,
+                   help="FX fakesource amplitude in ADC units (default 4.0 "
+                        "for float32, 32.0 for int8)")
     return p
+
+
+def load_eq_gains(path: str | None, nchan: int):
+    """--eq-gains FILE -> list of nchan positive floats (or None)."""
+    if not path:
+        return None
+    gains = (np.load(path) if path.endswith(".npy")
+             else np.loadtxt(path)).astype(float).ravel()
+    if len(gains) != nchan or not np.all(gains > 0):
+        raise ValueError(f"--eq-gains needs {nchan} positive values")
+    return gains.tolist()
 
 
 def main(argv=None) -> int:
@@ -65,6 +114,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not args.fakesource:
         parser.error("--fakesource is required: UDP capture is not ported")
+    if args.fx and (args.testdatain or args.testdatacorr):
+        parser.error("--fx takes raw ADC samples; the golden test vectors "
+                     "are packed post-F input")
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available "
               "(use --device cpu for the plain reference path)",
@@ -73,8 +125,20 @@ def main(argv=None) -> int:
     cfg = XEngineConfig(nstand=args.nstand, nchan=args.nchan,
                         nbeam=args.nbeam, ntime_gulp=args.ntime_gulp,
                         acc_len=args.acc_len,
-                        acc_len_slow=args.acc_len_slow)
-    if args.testdatain:
+                        acc_len_slow=args.acc_len_slow,
+                        pfb_fft_impl=args.pfb_impl,
+                        pfb_precision=args.pfb_precision,
+                        adc_dtype=args.adc_dtype)
+    if args.fx:
+        amp = args.adc_amplitude
+        if amp is None:
+            amp = 32.0 if args.adc_dtype == "int8" else 4.0
+        if args.fx_tone_chan >= 0:
+            src = ADCSource(cfg, mode="tone", tone_chan=args.fx_tone_chan,
+                            amplitude=amp)
+        else:
+            src = ADCSource(cfg, mode="noise", amplitude=amp)
+    elif args.testdatain:
         src = SyntheticSource(cfg, mode="testfile",
                               testfile=args.testdatain)
     else:
@@ -82,11 +146,18 @@ def main(argv=None) -> int:
     runner = XEngineRunner(cfg, device=args.device,
                            autostartat=args.autostartat,
                            checkfile=args.testdatacorr,
-                           checkfile_acc_len=args.testdatacorr_acc_len)
+                           checkfile_acc_len=args.testdatacorr_acc_len,
+                           fx=args.fx, quant_scale=args.quant_scale,
+                           eq_gains=load_eq_gains(args.eq_gains, cfg.nchan))
     t0 = time.perf_counter()
     ncall = 0
-    for _ in runner.run(src.stream(args.ngulp)):
+    slow = None
+    for products in runner.run(src.stream(args.ngulp)):
         ncall += 1
+        if "vis_slow" in products:
+            slow = products["vis_slow"]
+    if args.save_slow and slow is not None:
+        np.savez(args.save_slow, real=slow[0], imag=slow[1])
     print(f"{ncall} step calls, {runner.ndump_fast} fast dumps, "
           f"{runner.ndump_slow} slow dumps in "
           f"{time.perf_counter() - t0:.3f} s on {args.device}")

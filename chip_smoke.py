@@ -4,13 +4,25 @@
 
 Builds the kernels from ``caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc``,
 holds each against its plain PyTorch version at the LWA-352 production
-shapes (704 inputs, 192 channels, 2400-spectra window, 32 beams), then
-drives the port's main path -- :class:`XEngineRunner` over the golden input
-stream (seed 0xdeadbeef) -- for three fast windows at 192 channels and one
-at 184, checking every product against the plain versions on the card and
-the host truth.  It times each kernel beside its plain version and the
-full step per window.  The last line is ``{"ok": true, "device": ...}``;
-any failure raises and exits non-zero.  Imports nothing of JAX.
+shapes (704 inputs, 192 channels, 2400-spectra window, 32 beams; the
+channelizer also at the 4096-channel F-engine width), then drives three
+paths of the port, each with the kernel launch counts set to 0 just before
+it and read just after:
+
+- X/B: :class:`XEngineRunner` over the golden input stream (seed
+  0xdeadbeef), three fast windows at 192 channels and one at 184;
+- FX: :class:`XEngineRunner` in FX mode on int8 ADC, three windows and a
+  slow dump at 192 channels, one at 184, one with float32 ADC (bytes equal
+  to the int8 run's) and one tone window; per window the channelizer's
+  bytes are gated against the float64 plain version, the X/B products are
+  held exactly against the plain versions on those bytes, and the code
+  histogram must not be degenerate;
+- F-engine: ``channelize_pack_imajor`` at 4096 channels x 704 inputs x 240
+  spectra (the factored DFT), gated the same way.
+
+It times each kernel beside its plain version, the X/B step and the FX
+step per window.  The last line is ``{"ok": true, "device": ...}``; any
+failure raises and exits non-zero.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,11 +36,13 @@ import numpy as np
 import torch
 
 from caltech_bifrost_dsp_tpu.config import LWA352
-from caltech_bifrost_dsp_tpu_torch.models.xengine import (dense_vis,
+from caltech_bifrost_dsp_tpu_torch.io.source import ADCSource
+from caltech_bifrost_dsp_tpu_torch.models.xengine import (dense_vis, fx_step,
                                                           init_state,
                                                           xengine_step)
 from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
+from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import corr_acc, corr_acc_ref
 from caltech_bifrost_dsp_tpu_torch.ops.correlate import (Vis, chan_major,
                                                          correlate_chan_major)
@@ -37,6 +51,10 @@ from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
 from caltech_bifrost_dsp_tpu_torch.verification import golden
 
 SEED = 0xdeadbeef
+PFB_TOLERANCE = ("packed bytes vs the float64 plain version: a nibble may "
+                 "differ by one code only where the float64 value lies "
+                 "within 1e-3 of the rounding threshold, and such cases "
+                 "are <= 1e-6 of the codes (max_abs_err is in codes)")
 KERNELS = {
     "corr_acc": dict(
         fn=corr_acc, route="cuda",
@@ -56,7 +74,23 @@ KERNELS = {
                "subsel_gather.cu",
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/subsel_gather.py:162",
         tolerance="exact int32"),
+    "pfb_direct": dict(
+        fn=pfb_fused.pfb_direct, route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/"
+               "pfb_quantize.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/pfb_fused.py:434",
+        tolerance=PFB_TOLERANCE),
+    "pfb_factored": dict(
+        fn=pfb_fused.pfb_factored, route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/"
+               "pfb_quantize.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/pfb_fused.py:383",
+        tolerance=PFB_TOLERANCE),
 }
+#: the FX operating point: int8 ADC, one slow dump after three windows
+FX_CFG = LWA352.replace(adc_dtype="int8", acc_len_slow=7200)
+FENGINE_NCHAN, FENGINE_NSPEC = 4096, 240
+TONE_CHAN = 77
 # the production selection plus one malformed pair (stand 400 of 352)
 PAIRS = np.concatenate([
     cs.baselines_to_inputs(cs.production_baselines(LWA352.nvis_out,
@@ -178,7 +212,8 @@ def phase_kernels(dev, card: str, results: dict) -> None:
                                                 cfg.ntime_sum), 10),
         plain_ms=cuda_ms(lambda: bf.beamform_products_ref(
             xc, gains, cfg.ntime_sum), 3))
-    for name, r in results.items():
+    for name in ("corr_acc", "beamform_products", "subsel_gather"):
+        r = results[name]
         print(f"[{card}] {name}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms per call at the production shape",
               flush=True)
@@ -243,6 +278,271 @@ def run_geometry(dev, cfg, nwin: int, gains_np, window_s: list) -> None:
     print(f"[{cfg.nchan}c] slow dump after {nwin} windows: exact", flush=True)
 
 
+def zero_counts() -> None:
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+
+
+def read_counts() -> dict:
+    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
+
+
+def pfb_gate(packed, adc, window, nchan: int, ntap: int, scale,
+             fast: bool = False, what: str = "") -> int:
+    """Kernel bytes vs the float64 plain channelizer (run in chunks of
+    inputs: its FIR alone would be 5.2 GB at 704 inputs).  Every differing nibble
+    must be a one-code step at a threshold; their count must be <= 1e-6 of
+    the codes (1e-5 for bf16 operands).  Returns that count."""
+    tolerated = pfb.assert_packed_matches_ref(packed, adc, window, nchan,
+                                              ntap, scale, fast)
+    ncode = 2 * packed.numel()
+    frac = tolerated / ncode
+    print(f"{what}: pfb gate {tolerated} threshold cases of {ncode} codes "
+          f"({frac:.2e})", flush=True)
+    check(frac <= (1e-5 if fast else 1e-6), f"{what}: pfb gate {frac:.2e}")
+    return tolerated
+
+
+def code_histogram(packed, what: str) -> None:
+    """A noise window's codes must not be degenerate: at most 5% saturated
+    (-8 or 7) and at least 12 of the 16 codes in use."""
+    counts = torch.zeros(16, dtype=torch.int64, device=packed.device)
+    for nib in (packed >> 4, packed & 0xF):
+        counts += torch.bincount(nib.flatten().to(torch.int32),
+                                 minlength=16)
+    sat = float(counts[7] + counts[8]) / float(counts.sum())
+    used = int((counts > 0).sum())
+    print(f"{what}: {sat:.4f} of codes saturated, {used} of 16 codes used",
+          flush=True)
+    check(sat <= 0.05 and used >= 12, f"{what}: degenerate code histogram")
+
+
+def fx_scale_for(adc: np.ndarray, cfg) -> float:
+    """The requant gain that puts the pre-quantization rms near 2.5 codes,
+    from the first 8 inputs."""
+    x = torch.from_numpy(adc[:, :8].copy())
+    re, _ = pfb.pfb_prequant_ref(x, pfb.pfb_window(cfg.nchan, cfg.pfb_ntap),
+                                 cfg.nchan, cfg.pfb_ntap, 1.0)
+    return float(np.float32(2.5 / float(re.std())))
+
+
+def adc_windows(cfg, nwin: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    n = cfg.acc_len * 2 * cfg.nchan
+    return [rng.integers(-90, 91, (n, cfg.ninput), dtype=np.int8)
+            for _ in range(nwin)]
+
+
+def drive_fx(dev, cfg, windows: list, gains_np, quant_scale: float,
+             window_s: list):
+    """One FX path run: counts to 0, XEngineRunner in FX mode over the
+    windows, counts read.  Records per window the ADC with its FIR history,
+    the products and a copy of the fast accumulator."""
+    zero_counts()
+    gains = bf.BeamGains(*(torch.from_numpy(x[:cfg.nchan]).to(dev)
+                           for x in gains_np))
+    runner = XEngineRunner(cfg, dev, gains=gains, subsel_pairs=PAIRS,
+                           fx=True, quant_scale=quant_scale)
+    g = cfg.ntime_gulp * 2 * cfg.nchan
+
+    def stream():
+        for w, adc in enumerate(windows):
+            for k in range(cfg.acc_len // cfg.ntime_gulp):
+                yield (w * cfg.acc_len + k * cfg.ntime_gulp,
+                       adc[k * g:(k + 1) * g])
+
+    it = runner.run(stream())
+    records = []
+    for adc in windows:
+        ext = np.concatenate([runner.adc_tail, adc])
+        t0 = time.perf_counter()
+        prod = next(it)
+        window_s.append(time.perf_counter() - t0)
+        fast = Vis(runner.state.vis_fast.real.clone(),
+                   runner.state.vis_fast.imag.clone())
+        records.append((ext, prod, fast))
+    check(next(it, None) is None, "FX runner yielded more calls than windows")
+    torch.cuda.synchronize()
+    return records, gains, runner.scale, read_counts()
+
+
+def check_fx(dev, cfg, records, gains, scale, label: str,
+             noise: bool = True) -> list:
+    """(a) the channelizer's bytes under the gate, (b) fast, subselection,
+    VLBI (integer gains) and slow exact and power within rtol 1e-4 against
+    the plain X/B versions on those bytes, (c) the code histogram of noise
+    windows.  Returns the kernel's bytes per window (input-major)."""
+    window = torch.from_numpy(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap)).to(dev)
+    pairs = torch.from_numpy(PAIRS).to(dev)
+    slow_plain, out = None, []
+    for w, (ext, prod, fast) in enumerate(records):
+        what = f"[FX {label}] window {w}"
+        adc = torch.from_numpy(ext).to(dev)
+        packed = pfb_fused.pfb_direct(adc, window, cfg.nchan, cfg.pfb_ntap,
+                                      scale)
+        pfb_gate(packed, adc, window, cfg.nchan, cfg.pfb_ntap, scale,
+                 what=what)
+        if noise:
+            code_histogram(packed, what)
+        xc = chan_major(packed.permute(1, 2, 0).contiguous(), "tci")
+        plain = correlate_chan_major(xc)
+        dense = dense_vis(fast, cfg)
+        check(torch.equal(dense.real, plain.real)
+              and torch.equal(dense.imag, plain.imag),
+              f"{what}: fast dump vs plain on the kernel's bytes")
+        want = cs.corr_subsel_ref(plain, pairs, cfg.nchan_sum)
+        check(np.array_equal(prod["subsel"][0], want.real.cpu().numpy())
+              and np.array_equal(prod["subsel"][1], want.imag.cpu().numpy()),
+              f"{what}: subsel vs plain")
+        wp, wv = bf.beamform_products_ref(xc, gains, cfg.ntime_sum)
+        check(np.array_equal(prod["vlbi"], wv.cpu().numpy()),
+              f"{what}: VLBI not exact")
+        check(power_close(torch.from_numpy(prod["bf_power"]), wp.cpu()),
+              f"{what}: beam power vs plain")
+        slow_plain = plain if slow_plain is None else slow_plain + plain
+        print(f"{what}: fast, subsel, VLBI exact; power within rtol 1e-4",
+              flush=True)
+        out.append(packed)
+        del adc, xc, plain, dense
+    check("vis_slow" in prod, f"[FX {label}]: no slow dump")
+    sr, si = prod["vis_slow"]
+    check(np.array_equal(sr, slow_plain.real.cpu().numpy())
+          and np.array_equal(si, slow_plain.imag.cpu().numpy()),
+          f"[FX {label}]: slow dump vs plain")
+    print(f"[FX {label}] slow dump after {len(records)} windows: exact",
+          flush=True)
+    return out
+
+
+def run_fx_path(dev, gains_np, window_s: list) -> tuple[dict, float]:
+    """The FX path: 3 int8 windows + slow dump at 192 channels, one window
+    at 184, one with float32 ADC, one tone window.  Returns the launch
+    counts summed over the runs and the requant gain."""
+    cfg = FX_CFG
+    windows = adc_windows(cfg, 3, SEED)
+    runs = []
+
+    def run(cfg_r, wins, label, noise=True, qs=None):
+        if qs is None:
+            qs = fx_scale_for(wins[0], cfg_r)
+        print(f"[FX {label}] requant gain {qs:.6g} (pre-quantization rms "
+              f"~2.5 codes on noise)", flush=True)
+        records, gains, scale, counts = drive_fx(dev, cfg_r, wins, gains_np,
+                                                 qs, window_s)
+        for name in ("pfb_direct", "corr_acc", "beamform_products",
+                     "subsel_gather"):
+            check(counts[name] > 0, f"[FX {label}] {name} not launched")
+        print(f"[FX {label}] kernel launches: {counts}", flush=True)
+        runs.append(counts)
+        return check_fx(dev, cfg_r, records, gains, scale, label, noise), \
+            records
+
+    bytes8, rec8 = run(cfg, windows, "192c int8")
+    cfg184 = LWA352.replace(nchan=184, adc_dtype="int8", acc_len_slow=cfg.acc_len)
+    run(cfg184, adc_windows(cfg184, 1, SEED + 2), "184c int8")
+    cfg32 = cfg.replace(adc_dtype="float32", acc_len_slow=cfg.acc_len)
+    bytes32, rec32 = run(cfg32, [windows[0].astype(np.float32)], "192c f32")
+    check(torch.equal(bytes32[0], bytes8[0]),
+          "f32 ADC bytes differ from the int8 run's on the same values")
+    check(all(torch.equal(a, b) for a, b in zip(rec32[0][2], rec8[0][2])),
+          "f32 ADC fast dump differs from the int8 run's")
+    print("[FX 192c f32] packed bytes and fast dump equal the int8 run's",
+          flush=True)
+    del bytes8, bytes32, rec8, rec32
+    cfgt = cfg.replace(acc_len_slow=cfg.acc_len)
+    src = ADCSource(cfgt, mode="tone", tone_chan=TONE_CHAN, amplitude=32.0)
+    tone = np.concatenate([src.gulp(i) for i in range(
+        cfgt.acc_len // cfgt.ntime_gulp)])
+    _, rect = run(cfgt, [tone], f"tone {TONE_CHAN}", noise=False,
+                  qs=fx_scale_for(windows[0], cfg))
+    sr, _ = rect[-1][1]["vis_slow"]
+    autos = sr[:, 0, 0].astype(np.float64)
+    others = np.delete(autos, [TONE_CHAN - 1, TONE_CHAN, TONE_CHAN + 1])
+    check(int(autos.argmax()) == TONE_CHAN
+          and others.max() < 0.05 * autos[TONE_CHAN]
+          and np.allclose(sr[TONE_CHAN], autos[TONE_CHAN], rtol=0.01),
+          f"tone not in channel {TONE_CHAN}")
+    print(f"[FX tone] the tone lands in channel {TONE_CHAN} (auto "
+          f"{autos[TONE_CHAN]:.0f}, largest elsewhere {others.max():.0f})",
+          flush=True)
+    total = {name: sum(r[name] for r in runs) for name in KERNELS}
+    return total, fx_scale_for(windows[0], cfg)
+
+
+def run_fengine(dev, card: str, results: dict) -> dict:
+    """The F-engine path: channelize_pack_imajor at 4096 channels x 704
+    inputs x 240 spectra of int8 ADC (1.4 GB; depth cut from 2400 spectra
+    for the time limit), the factored kernel against the plain version."""
+    cfg = LWA352.replace(nchan=FENGINE_NCHAN, adc_dtype="int8")
+    ntap, L = cfg.pfb_ntap, 2 * FENGINE_NCHAN
+    rng = np.random.default_rng(SEED + 3)
+    adc_np = rng.integers(-90, 91, ((FENGINE_NSPEC + ntap - 1) * L,
+                                    cfg.ninput), dtype=np.int8)
+    qs = fx_scale_for(adc_np, cfg)
+    adc = torch.from_numpy(adc_np).to(dev)
+    del adc_np
+    window = torch.from_numpy(pfb.pfb_window(FENGINE_NCHAN, ntap)).to(dev)
+    zero_counts()
+    packed = pfb.channelize_pack_imajor(adc, window, cfg, qs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["pfb_factored"] > 0, "F-engine: pfb_factored not launched")
+    print(f"[F-engine] kernel launches: {counts}", flush=True)
+    check(packed.shape == (cfg.ninput, FENGINE_NSPEC, FENGINE_NCHAN),
+          "F-engine: packed shape")
+    what = f"[F-engine {FENGINE_NCHAN}c x {cfg.ninput} x {FENGINE_NSPEC}]"
+    ntol = pfb_gate(packed, adc, window, FENGINE_NCHAN, ntap, qs, what=what)
+    code_histogram(packed, what)
+    ms = cuda_ms(lambda: pfb_fused.pfb_factored(adc, window, FENGINE_NCHAN,
+                                                ntap, qs), 3)
+    plain_ms = cuda_ms(lambda: pfb.pfb_quantize_packed_ref(
+        adc, window, FENGINE_NCHAN, ntap, qs), 1)
+    results["pfb_factored"].update(max_abs_err=1.0 if ntol else 0.0,
+                                   ms=ms, plain_ms=plain_ms)
+    msps = FENGINE_NSPEC * L / (ms * 1e-3) / 1e6
+    print(f"[{card}] pfb_factored at {FENGINE_NCHAN} channels x "
+          f"{cfg.ninput} inputs x {FENGINE_NSPEC} spectra: kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms; {msps:.1f} Msamples/s per input "
+          f"(F-engine bar fs = {cfg.fs_hz / 1e6:.0f} Msamples/s: "
+          f"{msps / (cfg.fs_hz / 1e6):.3f}x)", flush=True)
+    return counts
+
+
+def phase_pfb_direct(dev, card: str, results: dict) -> None:
+    """The direct channelizer kernel against its plain version at the
+    production shape (704 inputs x 2400 spectra x 192 channels, int8),
+    float32 and bf16 operands, and per-channel scale."""
+    cfg = FX_CFG
+    ntap, L = cfg.pfb_ntap, 2 * cfg.nchan
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    adc = torch.randint(-90, 91, ((cfg.acc_len + ntap - 1) * L, cfg.ninput),
+                        generator=g, device=dev, dtype=torch.int8)
+    window = torch.from_numpy(pfb.pfb_window(cfg.nchan, ntap)).to(dev)
+    qs = fx_scale_for(adc[:, :8].cpu().numpy(), cfg)
+    per_chan = (torch.rand(cfg.nchan, generator=g, device=dev) * 0.6
+                + 0.7) * qs
+    ntol = 0
+    for scale, fast, what in [(qs, False, "float32"),
+                              (per_chan, False, "float32, per-channel"),
+                              (qs, True, "bf16")]:
+        packed = pfb_fused.pfb_direct(adc, window, cfg.nchan, ntap, scale,
+                                      fast)
+        torch.cuda.synchronize()
+        n = pfb_gate(packed, adc, window, cfg.nchan, ntap, scale, fast,
+                     what=f"pfb_direct {what}")
+        ntol += 0 if fast else n
+    results["pfb_direct"].update(
+        max_abs_err=1.0 if ntol else 0.0,
+        ms=cuda_ms(lambda: pfb_fused.pfb_direct(adc, window, cfg.nchan, ntap,
+                                                qs), 5),
+        plain_ms=cuda_ms(lambda: pfb.pfb_quantize_packed_ref(
+            adc, window, cfg.nchan, ntap, qs), 2))
+    r = results["pfb_direct"]
+    print(f"[{card}] pfb_direct: kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms per 2400-spectra window at 704 inputs",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -264,22 +564,30 @@ def main() -> int:
 
     results = {name: {} for name in KERNELS}
     phase_kernels(dev, card, results)
+    phase_pfb_direct(dev, card, results)
 
     rng = np.random.RandomState(0xBF)
     shape = (LWA352.nchan, LWA352.nbeam, LWA352.ninput)
     gains_np = [rng.randint(-8, 9, shape).astype(np.float32)
                 for _ in range(2)]
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    # path 1, X/B: packed golden input
+    zero_counts()
     window_s = []
     run_geometry(dev, LWA352.replace(acc_len_slow=7200), 3, gains_np,
                  window_s)
     run_geometry(dev, LWA352.replace(nchan=184, acc_len_slow=2400), 1,
                  [g[:184] for g in gains_np], window_s)
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} not launched by the main path")
-    print(f"main-path kernel launches: {launches}", flush=True)
+    xb = read_counts()
+    for name in ("corr_acc", "beamform_products", "subsel_gather"):
+        check(xb[name] > 0, f"kernel {name} not launched by the X/B path")
+    print(f"X/B path kernel launches: {xb}", flush=True)
+    # path 2, FX: raw ADC through the channelizer
+    fx_window_s = []
+    fx, qs = run_fx_path(dev, gains_np, fx_window_s)
+    # path 3, F-engine: the channelizer alone at 4096 channels
+    fe = run_fengine(dev, card, results)
+    launches = {name: xb[name] + fx[name] + fe[name] for name in KERNELS}
+    print(f"kernel launches over the three paths: {launches}", flush=True)
 
     cfg = LWA352
     state = init_state(cfg, dev)
@@ -299,6 +607,27 @@ def main() -> int:
     print(f"[{card}] XEngineRunner host time per window (H2D from pinned "
           f"memory, step, products to numpy): "
           + ", ".join(f"{s:.3f} s" for s in window_s), flush=True)
+    del packed
+    fcfg = FX_CFG
+    L = 2 * fcfg.nchan
+    adc = torch.randint(-90, 91, ((fcfg.acc_len + fcfg.pfb_ntap - 1) * L,
+                                  fcfg.ninput), generator=g, device=dev,
+                        dtype=torch.int8)
+    window = torch.from_numpy(pfb.pfb_window(fcfg.nchan,
+                                             fcfg.pfb_ntap)).to(dev)
+    scale = torch.tensor(qs, device=dev)
+    fx_ms = cuda_ms(lambda: fx_step(state, adc, window, scale, gains, pairs,
+                                    True, True, False, fcfg), 5)
+    msps = fcfg.acc_len * L / (fx_ms * 1e-3) / 1e6
+    bar = fcfg.fs_hz / fcfg.npipeline / 1e6
+    print(f"[{card}] fx_step (int8 ADC -> pfb_direct -> X/B), one "
+          f"2400-spectra window at 704 inputs x 192 channels: {fx_ms:.3f} ms "
+          f"per window of {fcfg.acc_len / fcfg.spectra_rate_hz * 1e3:.1f} ms "
+          f"of sky; {msps:.2f} Msamples/s per input against the "
+          f"{bar:.3f} bar ({msps / bar:.2f}x)", flush=True)
+    print(f"[{card}] XEngineRunner FX host time per window (ADC into pinned "
+          f"memory, H2D, fx_step, products to numpy): "
+          + ", ".join(f"{s:.3f} s" for s in fx_window_s), flush=True)
 
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],

@@ -1,5 +1,5 @@
-"""The port, its CLI and ``chip_smoke.py`` import without JAX, and the CLI
-refuses ``--device cuda`` on a host without a card."""
+"""The port, its CLI, the FX bench and ``chip_smoke.py`` import without
+JAX, and the CLI and the bench refuse to run on a host without a card."""
 
 import os
 import subprocess
@@ -15,10 +15,17 @@ REPO = Path(__file__).resolve().parents[1]
 
 IMPORT_ALL = """
 import sys
+import caltech_bifrost_dsp_tpu_torch.io.source
 import caltech_bifrost_dsp_tpu_torch.models.xengine
+import caltech_bifrost_dsp_tpu_torch.ops.pfb
+import caltech_bifrost_dsp_tpu_torch.ops.pfb_fused
 import caltech_bifrost_dsp_tpu_torch.runtime.runner
+import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
 import chip_smoke
+from caltech_bifrost_dsp_tpu.config import TINY
+from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
+XEngineRunner(TINY.replace(adc_dtype="int8"), "cpu", fx=True)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "jaxlib")
 assert not bad, bad
@@ -44,5 +51,14 @@ def test_cli_device_cuda_fails_loudly_without_a_card():
         pytest.skip("a CUDA device is present")
     proc = _run(["-m", "caltech_bifrost_dsp_tpu_torch.scripts.pipeline",
                  "--fakesource", "--ngulp", "1", "--device", "cuda"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_bench_fx_fails_loudly_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = _run(["-m", "caltech_bifrost_dsp_tpu_torch.scripts.bench_fx",
+                 "--fengine", "--nspec", "1"])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
