@@ -4,15 +4,25 @@
     raw ADC ── pfb_quantize_packed ── packed bytes ─┐   (fx_step only)
 
     packed 4+4-bit gulp ──┬─ corr_acc ── fast acc ──┬─ subsel (+chan sum)
-                          │                         └─ slow acc
+                          │  (or corr_triu + adds)  └─ slow acc
                           └─ beamform_products ──┬─ dual-pol power
                                                  └─ VLBI voltages
 
 Boundary flags are Python bools, so there is one path: the JAX step's
-static-flag branch (xengine.py:191-210), three kernels on CUDA tensors and
-their plain versions on CPU tensors.  The accumulators live in an
-:class:`XEngineState` at the true input width and are updated IN PLACE by
-:func:`xengine_step`; the returned state holds the same tensors.
+static-flag branch (xengine.py:191-210), kernels on CUDA tensors and their
+plain versions on CPU tensors.  The accumulators live in an
+:class:`XEngineState` at the true input width, upper tiles valid, and are
+updated IN PLACE by :func:`xengine_step`; the returned state holds the
+same tensors.
+
+Engines (``cfg.corr_engine``, ``cfg.subsel_engine``, ``cfg.bf_engine``)
+select kernels as the JAX step does: ``"pallas_blk"`` and ``"xla"`` run
+the correlator with the accumulator algebra fused in (``corr_acc.cu``);
+``"pallas_triu"`` runs the gulp correlator (``corr_triu.cu``) and then
+the algebra of xengine.py:231-242 as in-place adds and copies on the
+state planes, elementwise work the JAX step leaves to XLA.  Every subsel
+engine name runs the one gather and both beamformer names the one fused
+beamformer kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from ..ops import corr_subsel as cs
 from ..ops import pfb as pfb_ops
 from ..ops.beamform import BeamGains, beamform_products
 from ..ops.corr_acc import corr_acc
+from ..ops.corr_triu import corr_triu
 from ..ops.correlate import Vis, mirror_vis, zero_vis
 
 
@@ -46,6 +57,15 @@ class XEngineOutputs(NamedTuple):
 def init_state(cfg: XEngineConfig, device=None) -> XEngineState:
     return XEngineState(zero_vis(cfg.nchan, cfg.ninput, device),
                         zero_vis(cfg.nchan, cfg.ninput, device))
+
+
+def _accumulate(acc: Vis, new: Vis, overwrite: bool) -> None:
+    """acc = new if overwrite else acc + new, in place, plane by plane."""
+    for a, b in zip(acc, new):
+        if overwrite:
+            a.copy_(b)
+        else:
+            a.add_(b)
 
 
 def xengine_step(state: XEngineState,
@@ -81,11 +101,18 @@ def xengine_step(state: XEngineState,
       (state, outputs); ``outputs.subsel`` is None unless ``fast_last``.
     """
     fast, slow = state
-    corr_acc(packed, fast, slow, fast_first, fast_last, slow_first,
-             layout=layout)
+    if cfg.corr_engine == "pallas_triu":
+        _accumulate(fast, corr_triu(packed, layout, fast.ninput),
+                    fast_first)
+        if fast_last:
+            _accumulate(slow, fast, slow_first)
+    else:
+        corr_acc(packed, fast, slow, fast_first, fast_last, slow_first,
+                 layout=layout)
     subsel = None
     if want_subsel and fast_last:
-        subsel = cs.corr_subsel(fast, subsel_pairs, cfg.nchan_sum)
+        subsel = cs.corr_subsel_engine(fast, subsel_pairs, cfg.nchan_sum,
+                                       cfg.subsel_engine)
     power, vlbi = beamform_products(packed, gains, cfg.ntime_sum,
                                     want_power, want_vlbi, layout=layout)
     return state, XEngineOutputs(subsel, power, vlbi)

@@ -6,7 +6,9 @@ single-pol visibilities by (stand, pol) pairs and sum groups of
 (``v[i0, i1] == conj(v[i1, i0])``), so it works on the correlator's
 upper-valid accumulators without a mirror.  The CUDA kernel
 (``kernels/csrc/subsel_gather.cu``) replaces the TPU slab extractors
-``block_extract``/``band_extract`` and the take around them.
+``block_extract``/``band_extract`` and the take around them, and the
+lane-gather kernel ``corr_subsel_pallas``: every engine name of
+:func:`corr_subsel_engine` computes the one gather.
 """
 
 from __future__ import annotations
@@ -111,6 +113,21 @@ def corr_subsel(vis: Vis, input_pairs: torch.Tensor, nchan_sum: int) -> Vis:
 
 #: kernel launches made by :func:`corr_subsel` in this process
 corr_subsel.launches = 0
+
+#: ``cfg.subsel_engine`` names (``ops/corr_subsel.py::corr_subsel_engine``)
+SUBSEL_ENGINES = ("xla", "bands", "pallas")
+
+
+def corr_subsel_engine(vis: Vis, input_pairs: torch.Tensor, nchan_sum: int,
+                       engine: str) -> Vis:
+    """Engine dispatch of the JAX step.  The JAX engines (flat take,
+    band-compacted slabs, the Pallas lane gather) differ only in how a
+    TPU reads the cube and give bit-identical output; here each name runs
+    :func:`corr_subsel`, the gather kernel on CUDA tensors and the plain
+    version on CPU tensors."""
+    if engine not in SUBSEL_ENGINES:
+        raise ValueError(f"unknown subsel engine {engine!r}")
+    return corr_subsel(vis, input_pairs, nchan_sum)
 
 
 def subsel_output_sfreq(sfreq: float, bw_hz: float, nchan: int,

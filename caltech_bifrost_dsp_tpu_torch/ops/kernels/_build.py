@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``csrc/*.cu`` compile with ``nvcc`` into ONE shared library with plain
-``extern "C"`` launchers, loaded with ``ctypes``.  The library lands in
+``extern "C"`` launchers, loaded with ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link.  The library lands in
 ``caltech_bifrost_dsp_tpu_torch/_build/`` under a name that carries the
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing is built at import; a failed build
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,7 @@ _L = ctypes.c_longlong
 #: argtypes of every launcher; each returns a cudaError_t as int
 SIGNATURES = {
     "cbd_corr_acc": (_P, _L, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "cbd_corr_triu": (_P, _L, _L, _I, _I, _I, _P, _P, _P),
     "cbd_beamform_products": (_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P,
                               _P, _P),
     "cbd_subsel_gather": (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
@@ -63,20 +65,36 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<name>.log``."""
+    The compilers' reports (``-Xptxas -v``: registers, shared memory,
+    spills) are kept beside the library as ``<name>.log``."""
     so = BUILD_DIR / f"libcbd_kernels_{source_hash()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [src.name for src, proc in zip(_sources(), procs)
+              if proc.returncode != 0]
+    if not failed:
+        tmp = so.with_name(f"{so.name}.{tag}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
+    so.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                           + "\n".join(logs))
     os.replace(tmp, so)
     return so
 

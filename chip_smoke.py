@@ -5,9 +5,9 @@
 Builds the kernels from ``caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc``,
 holds each against its plain PyTorch version at the LWA-352 production
 shapes (704 inputs, 192 channels, 2400-spectra window, 32 beams; the
-channelizer also at the 4096-channel F-engine width), then drives three
-paths of the port, each with the kernel launch counts set to 0 just before
-it and read just after:
+channelizer also at the 4096-channel F-engine width; the gulp correlator
+also at a ragged shape), then drives four paths of the port, each with the
+kernel launch counts set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
   0xdeadbeef), three fast windows at 192 channels and one at 184;
@@ -18,25 +18,43 @@ it and read just after:
   held exactly against the plain versions on those bytes, and the code
   histogram must not be degenerate;
 - F-engine: ``channelize_pack_imajor`` at 4096 channels x 704 inputs x 240
-  spectra (the factored DFT), gated the same way.
+  spectra (the factored DFT), gated the same way;
+- driver: the operator entry point's :class:`XEnginePipeline` (ingest,
+  compute and output threads) over three golden windows and one slow
+  dump, twice: with the ``pallas_triu``/``pallas``/``pallas`` engines and
+  with ``config.TPU_ENGINES``.  Integer gains arrive through the
+  ``Beamform`` command key and the baseline selection through
+  ``CorrSubsel``; the COR slow-dump packets, collected through ``send``,
+  scatter back exactly to the plain slow dump, and the subselection, PBEAM
+  and IBEAM packets, received on loopback UDP sockets by threads of this
+  script, decode to the plain products (subselection and VLBI exact,
+  power within rtol 1e-4).
 
-It times each kernel beside its plain version, the X/B step and the FX
-step per window.  The last line is ``{"ok": true, "device": ...}``; any
+It times each kernel beside its plain version, the X/B step (both
+correlator engines) and the FX step per window, and the driver's host
+time per window.  The last line is ``{"ok": true, "device": ...}``; any
 failure raises and exits non-zero.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import LWA352
-from caltech_bifrost_dsp_tpu_torch.io.source import ADCSource
+from caltech_bifrost_dsp_tpu.config import LWA352, TPU_ENGINES
+from caltech_bifrost_dsp_tpu_torch.control.command import CommandBlock
+from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
+from caltech_bifrost_dsp_tpu_torch.io import packets as pk
+from caltech_bifrost_dsp_tpu_torch.io import sink
+from caltech_bifrost_dsp_tpu_torch.io.source import (ADCSource,
+                                                     SyntheticSource)
 from caltech_bifrost_dsp_tpu_torch.models.xengine import (dense_vis, fx_step,
                                                           init_state,
                                                           xengine_step)
@@ -44,9 +62,12 @@ from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import corr_acc, corr_acc_ref
+from caltech_bifrost_dsp_tpu_torch.ops.corr_triu import (TILE, corr_triu,
+                                                         corr_triu_ref)
 from caltech_bifrost_dsp_tpu_torch.ops.correlate import (Vis, chan_major,
                                                          correlate_chan_major)
 from caltech_bifrost_dsp_tpu_torch.ops.kernels import _build
+from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
 from caltech_bifrost_dsp_tpu_torch.verification import golden
 
@@ -61,6 +82,12 @@ KERNELS = {
         source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_acc.cu",
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_blk.py:123",
         tolerance="exact int32 on j >= i"),
+    "corr_triu": dict(
+        fn=corr_triu, route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_triu.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_triu.py:69",
+        tolerance="exact int32 on the 128-input tiles with tile(j) >= "
+                  "tile(i); tiles below the diagonal stay zero"),
     "beamform_products": dict(
         fn=bf.beamform_products, route="cuda",
         source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/"
@@ -73,6 +100,9 @@ KERNELS = {
         source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/"
                "subsel_gather.cu",
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/subsel_gather.py:162",
+        also_replaces=[
+            "caltech_bifrost_dsp_tpu/ops/pallas/subsel_gather.py:221",
+            "caltech_bifrost_dsp_tpu/ops/pallas/subsel_gather.py:82"],
         tolerance="exact int32"),
     "pfb_direct": dict(
         fn=pfb_fused.pfb_direct, route="cuda",
@@ -96,6 +126,17 @@ PAIRS = np.concatenate([
     cs.baselines_to_inputs(cs.production_baselines(LWA352.nvis_out,
                                                    LWA352.nstand)),
     cs.baselines_to_inputs([[[400, 0], [3, 1]]])]).astype(np.int32)
+#: the driver path: three windows and one slow dump at full width
+DRIVER_CFG = LWA352.replace(acc_len_slow=7200)
+DRIVER_ENGINES = {
+    "pallas_triu": dict(corr_engine="pallas_triu", subsel_engine="pallas",
+                        bf_engine="pallas"),
+    "TPU_ENGINES": dict(TPU_ENGINES),
+}
+#: the driver's selection: production, the last entry malformed (stand 400)
+DRIVER_BASELINES = (cs.production_baselines(LWA352.nvis_out, LWA352.nstand)
+                    [:-1] + [[[400, 0], [3, 1]]])
+SYNC_TIME = 1_700_000_000
 
 
 def check(ok: bool, what: str) -> None:
@@ -219,13 +260,19 @@ def phase_kernels(dev, card: str, results: dict) -> None:
               flush=True)
 
 
-def run_geometry(dev, cfg, nwin: int, gains_np, window_s: list) -> None:
-    """Drive XEngineRunner over ``nwin`` golden windows; hold every product
-    against the plain versions on the card (anchored to the host truth on
-    4 channels per window)."""
-    ni = cfg.ninput
-    blocks = list(golden.generate_input_blocks(
+def golden_windows(cfg, nwin: int) -> list:
+    """The first ``nwin`` golden windows, uint8 [acc_len, nchan, nstand,
+    npol] each."""
+    return list(golden.generate_input_blocks(
         nwin * cfg.acc_len, cfg.nchan, cfg.nstand, cfg.npol, cfg.acc_len))
+
+
+def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
+    """Drive XEngineRunner over golden windows; hold every product against
+    the plain versions on the card (anchored to the host truth on 4
+    channels per window)."""
+    ni = cfg.ninput
+    nwin = len(blocks)
     gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
     pairs = torch.from_numpy(PAIRS).to(dev)
     runner = XEngineRunner(cfg, "cuda", gains=gains, subsel_pairs=PAIRS)
@@ -543,6 +590,309 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
           flush=True)
 
 
+def phase_triu(dev, card: str, results: dict) -> None:
+    """The gulp correlator against its plain version: production shape in
+    both layouts, and a ragged shape (300 inputs, 997 spectra, padded
+    cti).  Exact int32 on the upper tiles, zero below them."""
+    cfg = LWA352
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    err = 0.0
+    for ntime, nchan, ni, layout, pad in [
+            (cfg.acc_len, cfg.nchan, cfg.ninput, "tci", 0),
+            (cfg.acc_len, cfg.nchan, cfg.ninput, "cti", 64),
+            (997, 3, 300, "cti", 20)]:
+        shape = ((ntime, nchan, ni) if layout == "tci"
+                 else (nchan, ntime, ni + pad))
+        packed = torch.randint(0, 256, shape, generator=g, device=dev,
+                               dtype=torch.uint8)
+        got = corr_triu(packed, layout, ni)
+        want = corr_triu_ref(chan_major(packed, layout, ni))
+        torch.cuda.synchronize()
+        tile = torch.arange(ni, device=dev) // TILE
+        valid = tile[:, None] <= tile[None, :]
+        for a, b in zip(got, want):
+            check(torch.equal(a[:, valid], b[:, valid]),
+                  f"corr_triu != plain on the upper tiles ({ni} inputs, "
+                  f"{ntime} spectra, {layout})")
+            check(not a[:, ~valid].any(), "corr_triu wrote below the "
+                  "diagonal tiles")
+            err = max(err, max_abs(a[:, valid], b[:, valid]))
+        print(f"corr_triu {ni} inputs x {nchan} channels x {ntime} spectra "
+              f"{layout}: exact int32 on the upper tiles", flush=True)
+        if ni == cfg.ninput and layout == "tci":
+            xc = chan_major(packed, layout, ni)
+            results["corr_triu"].update(
+                ms=cuda_ms(lambda: corr_triu(packed, layout, ni), 5),
+                plain_ms=cuda_ms(lambda: corr_triu_ref(xc), 2))
+        del got, want
+    results["corr_triu"]["max_abs_err"] = err
+    r = results["corr_triu"]
+    print(f"[{card}] corr_triu: kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms per 2400-spectra window at 704 inputs x "
+          f"192 channels", flush=True)
+
+
+class GoldenSource(SyntheticSource):
+    """The golden stream gulp by gulp from pre-generated windows, for the
+    driver's zero-copy ingest (``fill_into``)."""
+
+    def __init__(self, cfg, blocks):
+        super().__init__(cfg)
+        g = cfg.ntime_gulp
+        self.gulps = [b.reshape(-1, cfg.nchan, cfg.ninput)[k:k + g]
+                      for b in blocks for k in range(0, len(b), g)]
+
+    def fill_into(self, dest):
+        i = self._fill_i
+        self._fill_i += 1
+        dest.reshape(self.gulps[i].shape)[...] = self.gulps[i]
+        return i * self.cfg.ntime_gulp
+
+    def stream(self, ngulp: int, seq0: int = 0):
+        for i in range(ngulp):
+            yield seq0 + i * self.cfg.ntime_gulp, self.gulps[i]
+
+
+class Receiver(threading.Thread):
+    """A loopback UDP receiver: every datagram until stopped."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.sock = sink.udp_rx_socket("127.0.0.1", 0, rcvbuf_mb=256,
+                                       timeout_s=0.2)
+        force = getattr(socket, "SO_RCVBUFFORCE", None)
+        if force is not None:
+            try:
+                self.sock.setsockopt(socket.SOL_SOCKET, force, 256 << 20)
+            except PermissionError:
+                pass  # capped at the host's rmem_max; the size is printed
+        self.rcvbuf = self.sock.getsockopt(socket.SOL_SOCKET,
+                                           socket.SO_RCVBUF)
+        self.addr = self.sock.getsockname()
+        self.pkts = []
+        self.done = threading.Event()
+
+    def run(self):
+        while True:
+            try:
+                self.pkts.append(self.sock.recv(65536))
+            except TimeoutError:
+                if self.done.is_set():
+                    return
+
+    def stop(self) -> list:
+        self.done.set()
+        self.join()
+        self.sock.close()
+        return self.pkts
+
+
+def driver_truth(dev, cfg, blocks, gains, pairs) -> tuple[list, tuple]:
+    """Plain products of each driver window on the card (anchored to the
+    host truth on 4 channels) and the plain slow dump over all of them."""
+    gr, gi = (x.cpu().numpy() for x in gains)
+    truth, slow = [], None
+    for w, block in enumerate(blocks):
+        packed = torch.from_numpy(block.reshape(cfg.acc_len, cfg.nchan,
+                                                cfg.ninput)).to(dev)
+        xc = chan_major(packed, "tci")
+        plain = correlate_chan_major(xc)
+        hvr, hvi = golden.host_corr_int32(block[:, :4])
+        check(np.array_equal(plain.real[:4].cpu().numpy(), hvr)
+              and np.array_equal(plain.imag[:4].cpu().numpy(), hvi),
+              "driver truth: plain correlator vs host on 4 channels")
+        sub = cs.corr_subsel_ref(plain, pairs, cfg.nchan_sum)
+        wp, wv = bf.beamform_products_ref(xc, gains, cfg.ntime_sum)
+        br, bi = golden.host_beams(block[:, :4], gr[:4], gi[:4])
+        hv = np.stack([br[:, :2], bi[:, :2]], -1).transpose(2, 0, 1, 3)
+        check(np.array_equal(wv[:, :4].cpu().numpy(), hv)
+              and power_close(wp[:, :, :4].cpu(), torch.from_numpy(
+                  golden.host_power(br, bi, cfg.ntime_sum)).float()),
+              "driver truth: plain beams vs host on 4 channels")
+        truth.append({"sub": (sub.real.cpu().numpy(),
+                              sub.imag.cpu().numpy()),
+                      "power": wp.cpu(), "vlbi": wv.cpu().numpy()})
+        slow = plain if slow is None else slow + plain
+        del packed, xc
+    return truth, (slow.real.cpu().numpy(), slow.imag.cpu().numpy())
+
+
+def command(store, key: str, seq, **kwargs) -> None:
+    """One control-plane command through the store (the client's
+    envelope)."""
+    store.put(key, json.dumps({"cmd": "update", "id": seq,
+                               "val": {"kwargs": kwargs}}))
+
+
+def load_gains(pipe, store, gains_np) -> None:
+    """Every (beam, input) calibration gain, then a zero-delay unit-amp
+    load of every beam: the active gains equal ``gains_np`` exactly."""
+    gr, gi = gains_np
+    key = pipe.beam_cmd.command_key
+    data = np.empty(2 * gr.shape[0])
+    for b in range(gr.shape[1]):
+        for i in range(gr.shape[2]):
+            data[0::2] = gr[:, b, i]
+            data[1::2] = gi[:, b, i]
+            command(store, key, f"g{b}.{i}", coeffs={
+                "type": "calgains", "input_id": i, "beam_id": b,
+                "data": data.tolist()})
+    ni = gr.shape[2]
+    for b in range(gr.shape[1]):
+        command(store, key, f"d{b}", coeffs={
+            "type": "beamcoeffs", "beam_id": b, "load_sample": -1,
+            "data": {"delays": [0.0] * ni, "amps": [1.0] * ni}})
+
+
+def decode_streams(cfg, sub_pkts, pb_pkts, ib_pkts, nwin: int):
+    """Received packets -> per-window subselection planes (with the
+    baselines they carried), power [nbeam//2, nblock, nchan, 4] and VLBI
+    [ntime, nchan, 2, 2]."""
+    nco = cfg.nchan // cfg.nchan_sum
+    subs = {}
+    for p in sub_pkts:
+        hdr, bl, data = pk.decode_corr_part(p)
+        subs.setdefault(hdr.spectra_id, []).append((bl, data))
+    windows = []
+    for w in range(nwin):
+        parts = subs.get(w * cfg.acc_len, [])
+        bl = np.concatenate([b for b, _ in parts]) if parts else None
+        data = (np.concatenate([d for _, d in parts]) if parts
+                else np.zeros((0, nco, 2), np.int32))
+        windows.append((bl, data[..., 0].T, data[..., 1].T))
+    nblock = nwin * cfg.acc_len // cfg.ntime_sum
+    power = np.full((cfg.nbeam // 2, nblock, cfg.nchan, 4), np.nan,
+                    np.float32)
+    for p in pb_pkts:
+        hdr, data = pk.decode_pbeam(p)
+        power[hdr.beam - 1, hdr.seq // cfg.ntime_sum] = data[:, 0]
+    vlbi = np.full((nwin * cfg.acc_len, cfg.nchan, 2, 2), np.nan,
+                   np.float32)
+    for p in ib_pkts:
+        hdr, data = pk.decode_ibeam(p)
+        vlbi[hdr.seq] = data
+    return windows, power, vlbi
+
+
+def run_driver(dev, card: str, label: str, engines: dict, blocks,
+               gains_np, truth, slow) -> tuple[dict, list, float]:
+    """One driver run: launch counts to 0, XEnginePipeline over the
+    golden windows with every sink, counts read, products checked.
+    Returns the counts, the host time per window and the run's wall
+    time."""
+    cfg = DRIVER_CFG.replace(**engines)
+    nwin = len(blocks)
+    CommandBlock.reset_instance_counts()
+    rx = {name: Receiver() for name in ("subsel", "pbeam", "ibeam")}
+    for r in rx.values():
+        r.start()
+    cor = []
+    store = MemoryStore()
+    pipe = XEnginePipeline(
+        cfg, GoldenSource(cfg, blocks), store=store, sync_time=SYNC_TIME,
+        corr_outputs=[sink.CorrFullOutput(cfg, send=cor.append,
+                                          use_cor_fmt=True)],
+        subsel_outputs=[sink.CorrPartOutput(
+            cfg, send=sink.UdpSender(*rx["subsel"].addr))],
+        pbeam_outputs=[sink.PBeamOutput(
+            cfg, senders={b: sink.UdpSender(*rx["pbeam"].addr)
+                          for b in range(cfg.nbeam // 2)})],
+        ibeam_outputs=[sink.IBeamOutput(
+            cfg, send=sink.UdpSender(*rx["ibeam"].addr))],
+        device="cuda")
+    t0 = time.perf_counter()
+    load_gains(pipe, store, gains_np)
+    command(store, pipe.subsel_cmd.command_key, "bl",
+            baselines=DRIVER_BASELINES)
+    print(f"[driver {label}] gains and baselines commanded in "
+          f"{time.perf_counter() - t0:.1f} s; receive buffers "
+          f"{min(r.rcvbuf for r in rx.values())} B", flush=True)
+    ngulp = nwin * cfg.acc_len // cfg.ntime_gulp
+    zero_counts()
+    t0 = time.perf_counter()
+    pipe.run(ngulp, timeout_s=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    sub_pkts, pb_pkts, ib_pkts = (rx[n].stop() for n in
+                                  ("subsel", "pbeam", "ibeam"))
+    print(f"[driver {label}] kernel launches: {counts}", flush=True)
+    correlator = "corr_triu" if engines["corr_engine"] == "pallas_triu" \
+        else "corr_acc"
+    for name in (correlator, "subsel_gather", "beamform_products"):
+        check(counts[name] > 0, f"[driver {label}] {name} not launched")
+    check((pipe.ndump_fast, pipe.ndump_slow) == (nwin, 1),
+          f"[driver {label}] dumps {pipe.ndump_fast} fast, "
+          f"{pipe.ndump_slow} slow")
+    nbl = cfg.nstand * (cfg.nstand + 1) // 2
+    check(len(cor) == nbl, f"[driver {label}] {len(cor)} COR packets")
+    cube = pk.cor_scatter_matrix(cor, cfg.nstand, cfg.npol)
+    for k, plane in enumerate(slow):
+        want = plane.reshape(cfg.nchan, cfg.nstand, cfg.npol, cfg.nstand,
+                             cfg.npol).transpose(1, 3, 2, 4, 0)
+        check(np.array_equal(cube[..., k], want),
+              f"[driver {label}] COR slow dump vs plain")
+    del cube, cor
+    print(f"[driver {label}] COR slow dump ({nbl} packets) scatters to the "
+          f"plain slow dump exactly", flush=True)
+    npkt = (nwin * -(-cfg.nvis_out // 16), nwin * cfg.nbeam // 2 *
+            cfg.acc_len // cfg.ntime_sum, nwin * cfg.acc_len)
+    check((len(sub_pkts), len(pb_pkts), len(ib_pkts)) == npkt,
+          f"[driver {label}] received {len(sub_pkts)}, {len(pb_pkts)}, "
+          f"{len(ib_pkts)} packets of {npkt}")
+    windows, power, vlbi = decode_streams(cfg, sub_pkts, pb_pkts, ib_pkts,
+                                          nwin)
+    bl = np.asarray(DRIVER_BASELINES, np.uint32)
+    nb = cfg.acc_len // cfg.ntime_sum
+    for w, ((got_bl, sr, si), want) in enumerate(zip(windows, truth)):
+        check(got_bl is not None and np.array_equal(got_bl, bl),
+              f"[driver {label}] window {w}: subsel baselines")
+        check(np.array_equal(sr, want["sub"][0])
+              and np.array_equal(si, want["sub"][1]),
+              f"[driver {label}] window {w}: subsel vs plain")
+        check(np.array_equal(vlbi[w * cfg.acc_len:(w + 1) * cfg.acc_len],
+                             want["vlbi"]),
+              f"[driver {label}] window {w}: VLBI not exact")
+        check(power_close(torch.from_numpy(power[:, w * nb:(w + 1) * nb]),
+                          want["power"]),
+              f"[driver {label}] window {w}: beam power vs plain")
+    print(f"[driver {label}] {len(sub_pkts)} subsel, {len(pb_pkts)} PBEAM, "
+          f"{len(ib_pkts)} IBEAM packets over loopback UDP: subsel and VLBI "
+          f"exact, power within rtol 1e-4", flush=True)
+    ends = [t0] + pipe.dump_times
+    per_window = [b - a for a, b in zip(ends, ends[1:])]
+    gbps = nwin * cfg.acc_len * cfg.nchan * cfg.ninput * 8 / wall / 1e9
+    print(f"[{card}] driver {label}: host time per window (fast dump "
+          f"products out of the output thread) "
+          + ", ".join(f"{s:.3f} s" for s in per_window)
+          + f"; {wall:.3f} s for {nwin} windows and the slow dump = "
+          f"{gbps:.2f} Gb/s sustained (real-time bar "
+          f"{cfg.input_gbps:.1f} Gb/s)", flush=True)
+    return counts, per_window, wall
+
+
+def run_driver_path(dev, card: str, blocks, gains_np) -> dict:
+    """The fourth path: the driver in both engine sets over the same
+    golden windows.  Returns the launch counts summed over both runs."""
+    cfg = DRIVER_CFG
+    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
+    pairs = torch.from_numpy(cs.baselines_to_inputs(
+        DRIVER_BASELINES).astype(np.int32)).to(dev)
+    truth, slow = driver_truth(dev, cfg, blocks, gains, pairs)
+    total = {name: 0 for name in KERNELS}
+    switch = sys.getswitchinterval()
+    # the receivers share the interpreter with the output thread
+    sys.setswitchinterval(5e-4)
+    try:
+        for label, engines in DRIVER_ENGINES.items():
+            counts, _, _ = run_driver(dev, card, label, engines, blocks,
+                                      gains_np, truth, slow)
+            total = {name: total[name] + counts[name] for name in KERNELS}
+    finally:
+        sys.setswitchinterval(switch)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -564,6 +914,7 @@ def main() -> int:
 
     results = {name: {} for name in KERNELS}
     phase_kernels(dev, card, results)
+    phase_triu(dev, card, results)
     phase_pfb_direct(dev, card, results)
 
     rng = np.random.RandomState(0xBF)
@@ -571,11 +922,12 @@ def main() -> int:
     gains_np = [rng.randint(-8, 9, shape).astype(np.float32)
                 for _ in range(2)]
     # path 1, X/B: packed golden input
+    blocks = golden_windows(DRIVER_CFG, 3)
     zero_counts()
     window_s = []
-    run_geometry(dev, LWA352.replace(acc_len_slow=7200), 3, gains_np,
-                 window_s)
-    run_geometry(dev, LWA352.replace(nchan=184, acc_len_slow=2400), 1,
+    run_geometry(dev, DRIVER_CFG, blocks, gains_np, window_s)
+    cfg184 = LWA352.replace(nchan=184, acc_len_slow=2400)
+    run_geometry(dev, cfg184, golden_windows(cfg184, 1),
                  [g[:184] for g in gains_np], window_s)
     xb = read_counts()
     for name in ("corr_acc", "beamform_products", "subsel_gather"):
@@ -586,8 +938,12 @@ def main() -> int:
     fx, qs = run_fx_path(dev, gains_np, fx_window_s)
     # path 3, F-engine: the channelizer alone at 4096 channels
     fe = run_fengine(dev, card, results)
-    launches = {name: xb[name] + fx[name] + fe[name] for name in KERNELS}
-    print(f"kernel launches over the three paths: {launches}", flush=True)
+    # path 4, the operator entry point's threaded driver
+    dr = run_driver_path(dev, card, blocks, gains_np)
+    del blocks
+    launches = {name: xb[name] + fx[name] + fe[name] + dr[name]
+                for name in KERNELS}
+    print(f"kernel launches over the four paths: {launches}", flush=True)
 
     cfg = LWA352
     state = init_state(cfg, dev)
@@ -604,6 +960,12 @@ def main() -> int:
           f"192 channels: {step_ms:.3f} ms per window ({gbps:.1f} Gb/s of "
           f"packed input; the real-time bar is {cfg.input_gbps:.1f} Gb/s)",
           flush=True)
+    tcfg = cfg.replace(**DRIVER_ENGINES["pallas_triu"])
+    triu_ms = cuda_ms(lambda: xengine_step(state, packed, gains, pairs, True,
+                                           True, False, tcfg), 5)
+    print(f"[{card}] xengine_step per window, pallas_triu engines "
+          f"(corr_triu.cu + in-place adds): {triu_ms:.3f} ms; default "
+          f"engines (corr_acc.cu): {step_ms:.3f} ms", flush=True)
     print(f"[{card}] XEngineRunner host time per window (H2D from pinned "
           f"memory, step, products to numpy): "
           + ", ".join(f"{s:.3f} s" for s in window_s), flush=True)
@@ -631,6 +993,7 @@ def main() -> int:
 
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],
+                **{k: spec[k] for k in ("also_replaces",) if k in spec},
                 "launches": launches[name], **results[name],
                 "tolerance": spec["tolerance"]}
                for name, spec in KERNELS.items()]

@@ -1,5 +1,6 @@
 """The port, its CLI, the FX bench and ``chip_smoke.py`` import without
-JAX, and the CLI and the bench refuse to run on a host without a card."""
+JAX, an ``XEnginePipeline`` runs on the CPU in a process without JAX, and
+the CLI and the bench refuse to run on a host without a card."""
 
 import os
 import subprocess
@@ -15,17 +16,35 @@ REPO = Path(__file__).resolve().parents[1]
 
 IMPORT_ALL = """
 import sys
+import caltech_bifrost_dsp_tpu_torch.control.command
+import caltech_bifrost_dsp_tpu_torch.control.monitor
+import caltech_bifrost_dsp_tpu_torch.control.store
+import caltech_bifrost_dsp_tpu_torch.io.packets
+import caltech_bifrost_dsp_tpu_torch.io.sink
 import caltech_bifrost_dsp_tpu_torch.io.source
 import caltech_bifrost_dsp_tpu_torch.models.xengine
+import caltech_bifrost_dsp_tpu_torch.ops.corr_triu
 import caltech_bifrost_dsp_tpu_torch.ops.pfb
 import caltech_bifrost_dsp_tpu_torch.ops.pfb_fused
+import caltech_bifrost_dsp_tpu_torch.runtime.driver
 import caltech_bifrost_dsp_tpu_torch.runtime.runner
 import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
+import caltech_bifrost_dsp_tpu_torch.utils.proclog
 import chip_smoke
 from caltech_bifrost_dsp_tpu.config import TINY
+from caltech_bifrost_dsp_tpu_torch.io.sink import CorrPartOutput
+from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
+from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
 XEngineRunner(TINY.replace(adc_dtype="int8"), "cpu", fx=True)
+cfg = TINY.replace(corr_engine="pallas_triu", subsel_engine="pallas")
+pkts = []
+pipe = XEnginePipeline(cfg, SyntheticSource(cfg, mode="random"),
+                       subsel_outputs=[CorrPartOutput(cfg, send=pkts.append)],
+                       device="cpu")
+pipe.run(20, timeout_s=60)
+assert pipe.ndump_fast == 4 and pipe.ndump_slow == 2 and pkts
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "jaxlib")
 assert not bad, bad
