@@ -11,6 +11,6 @@ beside a plain PyTorch version of the same function.  A wrapper runs the
 plain version for CPU tensors and launches its kernel for CUDA tensors.
 """
 
-from caltech_bifrost_dsp_tpu.config import LWA352, XEngineConfig
+from .config import LWA352, XEngineConfig
 
 __all__ = ["XEngineConfig", "LWA352"]

@@ -17,7 +17,7 @@ import time
 
 import numpy as np
 
-from caltech_bifrost_dsp_tpu.config import XEngineConfig
+from ..config import XEngineConfig
 
 from ..verification import golden
 

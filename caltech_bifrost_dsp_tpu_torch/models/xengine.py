@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import XEngineConfig
+from ..config import XEngineConfig
 
 from ..ops import corr_subsel as cs
 from ..ops import pfb as pfb_ops

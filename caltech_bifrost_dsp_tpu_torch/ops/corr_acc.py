@@ -14,6 +14,10 @@ The CUDA kernel (``kernels/csrc/corr_acc.cu``) computes only the upper
 64 x 64 input-tile pairs, so entries ``j >= i`` of the state are valid and
 consumers go through :func:`..models.xengine.dense_vis` or the subselection
 gather.  The plain version :func:`corr_acc_ref` computes the dense matrix.
+
+``unpack_cache=True`` is the port of ``corr_blk.py::_corr_blk_acc_cached``:
+a prepass kernel unpacks the block once into sign-extended byte planes and
+the contraction reads those; the state comes out bit-identical.
 """
 
 from __future__ import annotations
@@ -42,12 +46,28 @@ def corr_acc_ref(xc: torch.Tensor, fast: Vis, slow: Vis, fast_first: bool,
                 acc.add_(f)
 
 
+#: the cached variant's plane geometry (``csrc/corr_acc.cu``): inputs
+#: padded to whole 64-tiles, time to whole 32-sample chunks of 8 words
+_CACHE_TILE, _CACHE_TCHUNK = 64, 32
+
+
+def cache_shape(nchan: int, ntime: int, ninput: int) -> tuple:
+    """Shape of the int32 scratch of ``unpack_cache=True``: [nchan, 4
+    planes (re, im, im - re, re + im), words of 4 samples, inputs]."""
+    nq = -(-ntime // _CACHE_TCHUNK) * (_CACHE_TCHUNK // 4)
+    return (nchan, 4, nq, -(-ninput // _CACHE_TILE) * _CACHE_TILE)
+
+
 def corr_acc(packed: torch.Tensor, fast: Vis, slow: Vis, fast_first: bool,
-             fast_last: bool, slow_first: bool, layout: str = "tci") -> None:
+             fast_last: bool, slow_first: bool, layout: str = "tci",
+             unpack_cache: bool = False) -> None:
     """Correlate ``packed`` (uint8, ``layout`` "tci" [ntime, nchan, ninput]
     or "cti" [nchan, ntime, ninput|padded]) into the state planes in place.
 
-    CPU tensors take :func:`corr_acc_ref`; CUDA tensors launch the kernel.
+    CPU tensors take :func:`corr_acc_ref`; CUDA tensors launch the kernel:
+    with ``unpack_cache`` the unpack-once pair (prepass + contraction from
+    the cached planes, a per-call scratch in device memory), else the
+    kernel that unpacks its tiles itself.  Same state either way.
     """
     ninput = fast.ninput
     xc = chan_major(packed, layout, ninput)
@@ -66,12 +86,23 @@ def corr_acc(packed: torch.Tensor, fast: Vis, slow: Vis, fast_first: bool,
                              f"[{nchan}, {ninput}, {ninput}]")
     if len({p.data_ptr() for p in planes}) != len(planes):
         raise ValueError("state planes must not alias")
+    flags = (int(fast_first), int(fast_last), int(slow_first))
+    if unpack_cache:
+        scratch = torch.empty(cache_shape(nchan, ntime, ninput),
+                              dtype=torch.int32, device=dev)
+        _build.launch("cbd_corr_acc_cached", dev, xc.data_ptr(),
+                      xc.stride(0), xc.stride(1), nchan, ntime, ninput,
+                      scratch.data_ptr(), scratch.numel(),
+                      *(p.data_ptr() for p in planes), *flags)
+        corr_acc.cached_launches += 1
+        return
     _build.launch("cbd_corr_acc", dev, xc.data_ptr(), xc.stride(0),
                   xc.stride(1), nchan, ntime, ninput,
-                  *(p.data_ptr() for p in planes), int(fast_first),
-                  int(fast_last), int(slow_first))
+                  *(p.data_ptr() for p in planes), *flags)
     corr_acc.launches += 1
 
 
-#: kernel launches made by :func:`corr_acc` in this process
+#: kernel launches made by :func:`corr_acc` in this process: the default
+#: kernel, and the unpack-once pair (one count per call)
 corr_acc.launches = 0
+corr_acc.cached_launches = 0

@@ -24,9 +24,21 @@ spans are released after it.
 The command blocks keep the reference's control surface (typed keys,
 staged application; corr_block.py:243-246, beamform_block.py:230-434,
 corr_subsel_block.py:237-246, corr_output_full_block.py:412-415) and its
-perf taxonomy.  Not ported yet: the device mesh (``mesh=``), the
-stub-device timing mode (``stub_device_ms=``) and the trigger-history
-ring with its dump (``history_nbyte``, ``dump_direct``); each raises.
+perf taxonomy.
+
+With ``mesh=`` (a :class:`..parallel.mesh.Mesh`) the step runs as the
+sharded programs of :mod:`..parallel.mesh`: the state is
+``zero_sharded_state`` (fast accumulator as per-time-shard partials), the
+step variant is chosen by the boundary flags and the wanted products, X/B
+and FX (the ADC tail carried on the host goes in as ``carry_tail``), and
+the products are unsharded before they reach the output thread.  The
+upload stays one pinned buffer and one H2D to the mesh's first device;
+shards on that device are views of the uploaded block, shards elsewhere
+are copied device to device.
+
+Not ported yet: the stub-device timing mode (``stub_device_ms=``) and the
+trigger-history ring with its dump (``history_nbyte``, ``dump_direct``);
+each raises.
 """
 
 from __future__ import annotations
@@ -38,19 +50,19 @@ import time
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import XEngineConfig
-from caltech_bifrost_dsp_tpu.runtime.arming import (Action,
-                                                    IntegrationController)
-from caltech_bifrost_dsp_tpu.runtime.ring import Ring
-
+from ..config import XEngineConfig
 from ..control.command import CommandBlock
 from ..io.sink import Throttle, UdpSender
 from ..models import xengine
 from ..ops import corr_subsel as cs
 from ..ops.beamform import BeamGains
+from ..ops.correlate import Vis
 from ..ops.pfb import pfb_window
+from ..parallel import mesh as pmesh
 from ..utils.proclog import PerfTimer
 from ..verification import golden
+from .arming import Action, IntegrationController
+from .ring import Ring
 from .runner import fx_scale
 
 
@@ -320,8 +332,9 @@ def _torch_dtype(np_dtype) -> torch.dtype:
 class XEnginePipeline:
     """One pipeline instance: threads + fused step + control endpoints.
 
-    ``device`` is "cuda" (the kernels) or "cpu" (their plain versions).
-    After :meth:`run`, ``dump_times`` holds the host clock at which each
+    ``device`` is "cuda" (the kernels) or "cpu" (their plain versions);
+    with ``mesh=`` it is the mesh's first device, and a ``device`` of
+    another type than the mesh's raises.  After :meth:`run`, ``dump_times`` holds the host clock at which each
     fast dump's products left the output thread.
     """
 
@@ -333,10 +346,8 @@ class XEnginePipeline:
                  fx_mode: bool = False, quant_scale: float = 1.0,
                  eq_gains=None, mesh=None, dump_direct: bool = False,
                  stub_device_ms: float | None = None, device="cuda"):
-        for name, value in (("mesh", mesh), ("stub_device_ms",
-                                             stub_device_ms)):
-            if value is not None:
-                raise NotImplementedError(f"{name}= is not ported yet")
+        if stub_device_ms is not None:
+            raise NotImplementedError("stub_device_ms= is not ported yet")
         if history_nbyte or dump_direct:
             raise NotImplementedError("the trigger-history ring and "
                                       "TriggeredDump are not ported yet")
@@ -345,6 +356,13 @@ class XEnginePipeline:
                              "not applicable in FX mode")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.devices[0][0]
+            if first.type != self.device.type:
+                raise ValueError(f"device {device} but the mesh lies on "
+                                 f"{first}")
+            self.device = first
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda but no CUDA device is available")
         self.cuda = self.device.type == "cuda"
@@ -422,7 +440,16 @@ class XEnginePipeline:
             self._adc_tail = np.zeros(
                 ((cfg.pfb_ntap - 1) * 2 * cfg.nchan, cfg.ninput),
                 self._adc_dtype)
-        self.state = xengine.init_state(cfg, self.device)
+        # mesh: the fast accumulator is per-time-shard partials; the full
+        # matrix exists only in a dump call's output, after the
+        # once-per-window psum (kept for the selftest)
+        self._mesh_steps: dict = {}
+        self._last_mesh_vis = None
+        if mesh is not None:
+            self.state = xengine.XEngineState(
+                *pmesh.zero_sharded_state(cfg, mesh))
+        else:
+            self.state = xengine.init_state(cfg, self.device)
         if self.cuda:
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
@@ -592,7 +619,10 @@ class XEnginePipeline:
         self._cpu_held = None
         block, host = self._upload(spans)
         cfg = self.cfg
-        if self.fx_mode:
+        if self.mesh is not None:
+            out = self._mesh_step(block, gains_dev, is_first, is_dump,
+                                  slow_first)
+        elif self.fx_mode:
             self.state, out = xengine.fx_step(
                 self.state, block, self._window, self.feng_cmd.scale_device,
                 gains_dev, self.subsel_cmd.pairs_device, is_first, is_dump,
@@ -608,6 +638,52 @@ class XEnginePipeline:
         if self._cpu_held:
             self._release_spans(self._cpu_held)
         return out
+
+    def _mesh_step(self, block, gains_dev, is_first, is_dump, slow_first):
+        """One sharded step call; the products come back unsharded on the
+        mesh's first device."""
+        cfg = self.cfg
+        key = (bool(is_first), bool(is_dump), bool(slow_first))
+        if key not in self._mesh_steps:
+            build = (pmesh.fx_sharded_state_fn if self.fx_mode
+                     else pmesh.xengine_sharded_state_fn)
+            self._mesh_steps[key] = build(
+                cfg, self.mesh, *key, want_power=self._want_power,
+                want_vlbi=self._want_vlbi, want_subsel=self._want_subsel)
+        step = self._mesh_steps[key]
+        state = (self.state.vis_fast, self.state.vis_slow)
+        pairs = self.subsel_cmd.pairs_device
+        if self.fx_mode:
+            # on-mesh halo between time shards; the host carries only the
+            # block-boundary ADC tail, uploaded in front of the block
+            k = self._adc_tail.shape[0]
+            state, out, vlbi = step(state, block[k:], block[:k],
+                                    self._window,
+                                    self.feng_cmd.scale_device, gains_dev,
+                                    pairs)
+        else:
+            state, out, vlbi = step(state, block, gains_dev, pairs)
+        self.state = xengine.XEngineState(*state)
+        if out.vis is not None:
+            self._last_mesh_vis = out.vis
+        dev = self.device
+        return xengine.XEngineOutputs(
+            None if out.subsel is None
+            else Vis(*(pmesh.unshard(p, dev) for p in out.subsel)),
+            None if out.bf_power is None
+            else pmesh.unshard(out.bf_power, dev),
+            None if vlbi is None else pmesh.unshard(vlbi, dev))
+
+    def _dense(self, which: str) -> Vis:
+        """The full Hermitian matrix of the fast ("fast", valid after a
+        dump call) or slow ("slow") accumulator on the first device."""
+        if self.mesh is None:
+            vis = (self.state.vis_fast if which == "fast"
+                   else self.state.vis_slow)
+            return xengine.dense_vis(vis, self.cfg)
+        # mesh: both are dense already (mirrored after the psum)
+        vis = self._last_mesh_vis if which == "fast" else self.state.vis_slow
+        return Vis(*(pmesh.unshard(p, self.device) for p in vis))
 
     def _emit(self, out, t, dec, slow_dec):
         """Queue device-resident products for the output thread, which
@@ -625,8 +701,7 @@ class XEnginePipeline:
             products["acc_len"] = dec.acc_len
             self.ndump_fast += 1
             if slow_dec.action == Action.DUMP:
-                products["vis_slow_planes"] = xengine.dense_vis(
-                    self.state.vis_slow, self.cfg)
+                products["vis_slow_planes"] = self._dense("slow")
                 products["slow_seq0"] = slow_dec.seq0
                 products["slow_acc_len"] = slow_dec.acc_len
                 self.ndump_slow += 1
@@ -674,7 +749,7 @@ class XEnginePipeline:
         self._selftest_acc = (ref if is_first
                               else self._selftest_acc + ref)
         if is_dump:
-            fast = xengine.dense_vis(self.state.vis_fast, cfg)
+            fast = self._dense("fast")
             got = (fast.real.cpu().numpy().astype(np.complex128)
                    + 1j * fast.imag.cpu().numpy())
             ok = golden.check_vis_against_golden(got, self._selftest_acc)

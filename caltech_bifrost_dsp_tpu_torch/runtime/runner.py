@@ -24,14 +24,12 @@ import os
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import XEngineConfig
-from caltech_bifrost_dsp_tpu.runtime.arming import (Action,
-                                                    IntegrationController)
-
+from ..config import XEngineConfig
 from ..models.xengine import dense_vis, fx_step, init_state, xengine_step
 from ..ops import corr_subsel as cs
 from ..ops.beamform import BeamGains
 from ..ops.pfb import pfb_window
+from .arming import Action, IntegrationController
 
 
 def fx_scale(quant_scale: float, eq_gains=None) -> np.ndarray:

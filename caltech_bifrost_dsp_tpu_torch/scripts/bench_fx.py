@@ -24,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import LWA352
+from ..config import LWA352
 
 
 def _gen_adc(nadc: int, ninput: int, adc_dtype: str) -> np.ndarray:

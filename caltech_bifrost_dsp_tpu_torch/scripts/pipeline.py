@@ -11,10 +11,13 @@ mismatch), ``--testcorr`` compares every fast dump with a numpy
 correlator, ``--save-slow`` keeps the last slow dump as an ``.npz`` file.
 ``--fx`` feeds raw ADC samples (noise, or a tone with ``--fx-tone-chan``)
 through the PFB channelizer in front of the X/B step.  ``--device cpu``
-runs the plain versions of the kernels.  Not ported yet, and refused with
-exit code 2: ``--mesh``, ``--xdp``, UDP capture (running without
-``--fakesource``), ``--etcdhost``, ``--bufgbytes`` > 0 and
-``--dump-direct``.
+runs the plain versions of the kernels.  ``--mesh TIMExCHAN`` runs the
+sharded programs of ``parallel/mesh.py``: on the host's CUDA devices, one
+per shard (fewer devices than shards: exit 2 with the count, nothing is
+placed silently), or with ``--device cpu`` with every shard on the CPU.
+Not ported yet, and refused with exit code 2: ``--xdp``, UDP capture
+(running without ``--fakesource``), ``--etcdhost``, ``--bufgbytes`` > 0
+and ``--dump-direct``.
 
 Examples::
 
@@ -34,6 +37,11 @@ Examples::
       --fx --fx-tone-chan 9 --nstand 8 --nchan 32 --ntime_gulp 48 \\
       --acc_len 96 --acc_len_slow 192 --nbeam 4 --ngulp 8 --device cpu \\
       --save-slow slow.npz
+
+  # the sharded programs on a 2x4 mesh whose shards share the CPU
+  python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline --fakesource \\
+      --nstand 16 --nchan 16 --nbeam 4 --ntime_gulp 48 --acc_len 240 \\
+      --acc_len_slow 480 --ngulp 20 --device cpu --mesh 2x4 --testcorr
 """
 
 from __future__ import annotations
@@ -48,13 +56,13 @@ import time
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import LWA352, TPU_ENGINES, XEngineConfig
-
+from ..config import LWA352, TPU_ENGINES, XEngineConfig
 from ..control.command import CommandBlock
 from ..control.monitor import MonitorBridge
 from ..control.store import connect
 from ..io import sink
 from ..io.source import ADCSource, SyntheticSource
+from ..parallel.mesh import make_mesh
 from ..runtime.driver import XEnginePipeline
 
 
@@ -172,7 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="FX fakesource amplitude in ADC units (default 4.0 "
                         "for float32, 32.0 for int8)")
     p.add_argument("--mesh", type=str, default=None, metavar="TIMExCHAN",
-                   help="not ported yet")
+                   help="run the step sharded over a (time x chan) device "
+                        "mesh, e.g. 2x4: one CUDA device per shard, or "
+                        "every shard on the CPU with --device cpu")
     p.add_argument("--xdp", type=str, default=None, metavar="IFNAME",
                    help="not ported yet")
     p.add_argument("--etcdhost", type=str, default=None,
@@ -209,7 +219,7 @@ class SlowDumpKeeper:
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit 2 on every flag whose machinery is not ported yet."""
-    unported = [("--mesh", args.mesh), ("--xdp", args.xdp),
+    unported = [("--xdp", args.xdp),
                 ("--etcdhost", args.etcdhost),
                 ("--bufgbytes > 0", args.bufgbytes > 0),
                 ("--dump-direct", args.dump_direct),
@@ -222,7 +232,27 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
                      "are packed post-F input")
 
 
-def build_pipeline(args) -> tuple[XEnginePipeline, SlowDumpKeeper | None]:
+def build_mesh(parser: argparse.ArgumentParser, args):
+    """``--mesh TIMExCHAN`` -> Mesh (None without the flag).  Exit 2 when
+    the host has fewer CUDA devices than the mesh has shards."""
+    if not args.mesh:
+        return None
+    n_time, _, n_chan = args.mesh.partition("x")
+    try:
+        n_time, n_chan = int(n_time), int(n_chan)
+    except ValueError:
+        parser.error(f"--mesh takes TIMExCHAN, got {args.mesh!r}")
+    if args.device == "cpu":
+        return make_mesh(n_time, n_chan, devices=["cpu"] * (n_time * n_chan))
+    have = torch.cuda.device_count()
+    if have < n_time * n_chan:
+        parser.error(f"--mesh {args.mesh} needs {n_time * n_chan} CUDA "
+                     f"devices, this host has {have}")
+    return make_mesh(n_time, n_chan)
+
+
+def build_pipeline(args, mesh=None
+                   ) -> tuple[XEnginePipeline, SlowDumpKeeper | None]:
     engines = dict(TPU_ENGINES)
     for key in ("corr_engine", "bf_engine", "subsel_engine"):
         if getattr(args, key) != "auto":
@@ -288,7 +318,7 @@ def build_pipeline(args) -> tuple[XEnginePipeline, SlowDumpKeeper | None]:
         ibeam_outputs=ibeam_outputs, autostartat=args.autostartat,
         sync_time=int(time.time()), selftest=args.testcorr,
         fx_mode=args.fx, quant_scale=args.quant_scale,
-        eq_gains=load_eq_gains(args.eq_gains, cfg.nchan),
+        eq_gains=load_eq_gains(args.eq_gains, cfg.nchan), mesh=mesh,
         device=args.device)
     pipe.monitor_bridge = MonitorBridge(store, pipeline_id=args.pipelineid)
     return pipe, keeper
@@ -298,13 +328,14 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
+    mesh = build_mesh(parser, args)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available "
               "(use --device cpu for the plain reference path)",
               file=sys.stderr)
         return 2
     log = setup_logging(args.logfile, args.verbose - args.quiet)
-    pipe, keeper = build_pipeline(args)
+    pipe, keeper = build_pipeline(args, mesh)
 
     def _shutdown(signum, frame):
         log.info("signal %d: shutting down", signum)

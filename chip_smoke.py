@@ -5,8 +5,8 @@
 Builds the kernels from ``caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc``,
 holds each against its plain PyTorch version at the LWA-352 production
 shapes (704 inputs, 192 channels, 2400-spectra window, 32 beams; the
-channelizer also at the 4096-channel F-engine width; the gulp correlator
-also at a ragged shape), then drives four paths of the port, each with the
+channelizer also at the 4096-channel F-engine width; the correlators
+also at a ragged shape), then drives five paths of the port, each with the
 kernel launch counts set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
@@ -28,17 +28,34 @@ kernel launch counts set to 0 just before it and read just after:
   scatter back exactly to the plain slow dump, and the subselection, PBEAM
   and IBEAM packets, received on loopback UDP sockets by threads of this
   script, decode to the plain products (subselection and VLBI exact,
-  power within rtol 1e-4).
+  power within rtol 1e-4);
+- mesh: the sharded programs of ``parallel/mesh.py`` with the
+  ``pallas_blk`` engines on 2x2 and 1x4 meshes whose four shards all lie
+  on ``cuda:0``: the X/B configuration's three golden windows gulp by gulp
+  and the slow dump through ``xengine_sharded_state_fn``, one int8 FX
+  window with a carried ADC tail through ``fx_sharded_state_fn`` at 2x2,
+  integers (and the packed bytes after the corner-turn) equal to the
+  unsharded step's and beam products within rtol 1e-4; then
+  ``XEnginePipeline(mesh=2x2)`` over the driver path's windows with every
+  sink, its packets byte for byte those of the unsharded driver run.
 
-It times each kernel beside its plain version, the X/B step (both
-correlator engines) and the FX step per window, and the driver's host
-time per window.  The last line is ``{"ok": true, "device": ...}``; any
+A last run drives the two correlator schedules that no engine name
+selects, ``corr_acc(unpack_cache=True)`` and ``corr_rows``, over the golden
+stream through their wrappers and holds their slow sums to the plain slow
+dump.
+
+It times each kernel beside its plain version and its bound (the larger
+of bytes moved over the memory rate and operations over the peak rate),
+the X/B step (both correlator engines) and the FX step per window,
+unsharded and sharded, and the driver's host time per window.  The last line is ``{"ok": true, "device": ...}``; any
 failure raises and exits non-zero.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import math
 import socket
 import subprocess
 import sys
@@ -48,7 +65,7 @@ import time
 import numpy as np
 import torch
 
-from caltech_bifrost_dsp_tpu.config import LWA352, TPU_ENGINES
+from caltech_bifrost_dsp_tpu_torch.config import LWA352, TPU_ENGINES
 from caltech_bifrost_dsp_tpu_torch.control.command import CommandBlock
 from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
 from caltech_bifrost_dsp_tpu_torch.io import packets as pk
@@ -62,11 +79,14 @@ from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import corr_acc, corr_acc_ref
+from caltech_bifrost_dsp_tpu_torch.ops import corr_blk as cblk
+from caltech_bifrost_dsp_tpu_torch.ops import corr_rows as crows
 from caltech_bifrost_dsp_tpu_torch.ops.corr_triu import (TILE, corr_triu,
                                                          corr_triu_ref)
 from caltech_bifrost_dsp_tpu_torch.ops.correlate import (Vis, chan_major,
                                                          correlate_chan_major)
 from caltech_bifrost_dsp_tpu_torch.ops.kernels import _build
+from caltech_bifrost_dsp_tpu_torch.parallel import mesh as pm
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
 from caltech_bifrost_dsp_tpu_torch.verification import golden
@@ -82,6 +102,24 @@ KERNELS = {
         source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_acc.cu",
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_blk.py:123",
         tolerance="exact int32 on j >= i"),
+    "corr_acc_cached": dict(
+        fn=corr_acc, counter="cached_launches", route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_acc.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_blk.py:267",
+        tolerance="exact int32 on j >= i; every plane bit-identical to "
+                  "corr_acc's"),
+    "corr_blk": dict(
+        fn=cblk.corr_blk, route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_acc.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_blk.py:402",
+        tolerance="exact int32 on the 64-input tiles with tile(j) >= "
+                  "tile(i); tiles below the diagonal stay zero"),
+    "corr_rows": dict(
+        fn=crows.corr_rows, route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_rows.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_rows.py:82",
+        tolerance="exact int32 on the 128-input tiles with tile(j) >= "
+                  "tile(i); tiles below the diagonal stay zero"),
     "corr_triu": dict(
         fn=corr_triu, route="cuda",
         source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_triu.cu",
@@ -117,6 +155,13 @@ KERNELS = {
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/pfb_fused.py:383",
         tolerance=PFB_TOLERANCE),
 }
+#: why no kernel has a library time: no single PyTorch call computes its
+#: function on its inputs (4+4-bit packed bytes in, or a fused chain out)
+NO_LIBRARY = None
+#: the card's published peaks (H100 SXM data sheet, dense): memory rate,
+#: int8 tensor-core rate, float32 rate outside the tensor cores
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1979e12, "fp32": 67e12}
 #: the FX operating point: int8 ADC, one slow dump after three windows
 FX_CFG = LWA352.replace(adc_dtype="int8", acc_len_slow=7200)
 FENGINE_NCHAN, FENGINE_NSPEC = 4096, 240
@@ -169,6 +214,40 @@ def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def bound(nbyte: float, nop: float, kind: str) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once over the memory rate, or the operations over the
+    peak rate of their type, whichever is larger."""
+    t_bytes = nbyte / HBM_BYTES_S * 1e3
+    t_ops = nop / PEAK_OPS_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": NO_LIBRARY}
+
+
+def corr_bound(nchan: int, ntime: int, ni: int, tile: int,
+               nplane_read: int, nplane_written: int) -> dict:
+    """A correlator call: the packed block in, ``nplane_*`` int32 planes'
+    valid tiles (tile(j) >= tile(i)) in and out; 4 real multiply-adds per
+    time sample, channel and input pair i <= j on the int8 tensor cores."""
+    nt = -(-ni // tile)
+    valid = sum(min(tile, ni - a * tile) * min(tile, ni - b * tile)
+                for a in range(nt) for b in range(a, nt))
+    nbyte = nchan * ntime * ni + (nplane_read + nplane_written) * 4 * \
+        nchan * valid
+    return bound(nbyte, 8 * nchan * ntime * ni * (ni + 1) / 2, "int8")
+
+
+def pfb_bound(adc, nspec: int, nchan: int, ntap: int) -> dict:
+    """The channelizer: ADC in, packed bytes out; the FIR's 2 * ntap
+    operations per sample and a real FFT's 2.5 log2(L) (the least count
+    for the transform, whatever the kernel does) in float32."""
+    L, ni = 2 * nchan, adc.shape[1]
+    nbyte = adc.numel() * adc.element_size() + ni * nspec * nchan
+    return bound(nbyte, nspec * ni * L * (2 * ntap + 2.5 * math.log2(L)),
+                 "fp32")
+
+
 def phase_kernels(dev, card: str, results: dict) -> None:
     """Each kernel against its plain version at the production shapes."""
     cfg = LWA352
@@ -206,7 +285,11 @@ def phase_kernels(dev, card: str, results: dict) -> None:
                  5)
     plain_ms = cuda_ms(lambda: corr_acc_ref(xc, fast, slow, False, True,
                                             False), 2)
-    results["corr_acc"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # flags (False, True, False): all four planes read and written
+    results["corr_acc"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               **corr_bound(nchan, ntime, ni, 64, 4, 4))
+    phase_cached(dev, card, results, packed, xc, upper, rand_planes,
+                 plain_ms)
 
     pairs = torch.from_numpy(PAIRS).to(dev)
     got = cs.corr_subsel(fast, pairs, cfg.nchan_sum)
@@ -215,7 +298,9 @@ def phase_kernels(dev, card: str, results: dict) -> None:
     for a, b in zip(got, want):
         check(torch.equal(a, b), "subsel != plain")
     print("subsel_gather: exact int32, malformed pair included", flush=True)
+    nvis, nco = pairs.shape[0], nchan // cfg.nchan_sum
     results["subsel_gather"].update(
+        **bound(8 * nvis * (nchan + nco + 1), 2 * nvis * nchan, "fp32"),
         max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
         ms=cuda_ms(lambda: cs.corr_subsel(fast, pairs, cfg.nchan_sum), 20),
         plain_ms=cuda_ms(lambda: cs.corr_subsel_ref(fast, pairs,
@@ -248,16 +333,76 @@ def phase_kernels(dev, card: str, results: dict) -> None:
         print(f"beamform_products {kind} gains: power max|err|/max "
               f"{rel:.3e}, VLBI max|err| {max_abs(v, wv):.3e}", flush=True)
     results["beamform_products"].update(
+        **bound(packed.numel() + 8 * gains.real.numel() + 4 * p.numel()
+                + 4 * v.numel(), 8 * nchan * ntime * cfg.nbeam * ni, "fp32"),
         max_abs_err=err,
         ms=cuda_ms(lambda: bf.beamform_products(packed, gains,
                                                 cfg.ntime_sum), 10),
         plain_ms=cuda_ms(lambda: bf.beamform_products_ref(
             xc, gains, cfg.ntime_sum), 3))
-    for name in ("corr_acc", "beamform_products", "subsel_gather"):
-        r = results[name]
-        print(f"[{card}] {name}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms per call at the production shape",
-              flush=True)
+    for name in ("corr_acc", "corr_acc_cached", "beamform_products",
+                 "subsel_gather"):
+        print_kernel(card, name, results[name], "per call at the production "
+                     "shape")
+
+
+def print_kernel(card: str, name: str, r: dict, where: str) -> None:
+    print(f"[{card}] {name}: kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms (by "
+          f"{r['bound_by']}) {where}", flush=True)
+
+
+def phase_cached(dev, card, results, packed, xc, upper, rand_planes,
+                 plain_ms) -> None:
+    """``corr_acc(unpack_cache=True)`` at the production shape (tci and
+    cti) and a ragged one: exact against the plain version on j >= i and
+    bit-identical to the default kernel on every plane."""
+    cfg = LWA352
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ragged = torch.randint(0, 256, (3, 997, 320), generator=g, device=dev,
+                           dtype=torch.uint8)
+    cti = packed.permute(1, 0, 2).contiguous()
+    err = 0.0
+    for blk, layout, ni, flag_sets in [
+            (packed, "tci", cfg.ninput, [(True, False, False),
+                                         (False, True, False),
+                                         (True, True, True)]),
+            (cti, "cti", cfg.ninput, [(False, True, True)]),
+            (ragged, "cti", 300, [(False, True, False)])]:
+        view = chan_major(blk, layout, ni)
+        nchan = view.shape[0]
+        up = torch.triu(torch.ones((ni, ni), dtype=torch.bool, device=dev))
+        for flags in flag_sets:
+            init = [torch.randint(-2 ** 20, 2 ** 20, (nchan, ni, ni),
+                                  generator=g, device=dev, dtype=torch.int32)
+                    for _ in range(4)]
+            want = [p.clone() for p in init]
+            corr_acc_ref(view, Vis(*want[:2]), Vis(*want[2:]), *flags)
+            default = [p.clone() for p in init]
+            corr_acc(blk, Vis(*default[:2]), Vis(*default[2:]), *flags,
+                     layout=layout)
+            corr_acc(blk, Vis(*init[:2]), Vis(*init[2:]), *flags,
+                     layout=layout, unpack_cache=True)
+            torch.cuda.synchronize()
+            for a, b, d in zip(init, want, default):
+                check(torch.equal(a[:, up], b[:, up]),
+                      f"corr_acc cached != plain on j >= i, {layout} {ni} "
+                      f"inputs, flags {flags}")
+                check(torch.equal(a, d), "corr_acc cached not bit-identical "
+                      f"to the default kernel, {layout} flags {flags}")
+                err = max(err, max_abs(a[:, up], b[:, up]))
+            del init, want, default
+        print(f"corr_acc unpack_cache {layout} {ni} inputs x {nchan} "
+              f"channels: exact int32 on j >= i, bit-identical to the "
+              f"default kernel", flush=True)
+    del cti
+    state = rand_planes()
+    fast, slow = Vis(*state[:2]), Vis(*state[2:])
+    ms = cuda_ms(lambda: corr_acc(packed, fast, slow, False, True, False,
+                                  unpack_cache=True), 5)
+    results["corr_acc_cached"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **corr_bound(cfg.nchan, cfg.acc_len, cfg.ninput, 64, 4, 4))
 
 
 def golden_windows(cfg, nwin: int) -> list:
@@ -327,11 +472,12 @@ def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
 
 def zero_counts() -> None:
     for spec in KERNELS.values():
-        spec["fn"].launches = 0
+        setattr(spec["fn"], spec.get("counter", "launches"), 0)
 
 
 def read_counts() -> dict:
-    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    return {name: getattr(spec["fn"], spec.get("counter", "launches"))
+            for name, spec in KERNELS.items()}
 
 
 def pfb_gate(packed, adc, window, nchan: int, ntap: int, scale,
@@ -544,12 +690,16 @@ def run_fengine(dev, card: str, results: dict) -> dict:
                                                 ntap, qs), 3)
     plain_ms = cuda_ms(lambda: pfb.pfb_quantize_packed_ref(
         adc, window, FENGINE_NCHAN, ntap, qs), 1)
-    results["pfb_factored"].update(max_abs_err=1.0 if ntol else 0.0,
-                                   ms=ms, plain_ms=plain_ms)
+    results["pfb_factored"].update(
+        max_abs_err=1.0 if ntol else 0.0, ms=ms, plain_ms=plain_ms,
+        **pfb_bound(adc, FENGINE_NSPEC, FENGINE_NCHAN, ntap))
     msps = FENGINE_NSPEC * L / (ms * 1e-3) / 1e6
     print(f"[{card}] pfb_factored at {FENGINE_NCHAN} channels x "
           f"{cfg.ninput} inputs x {FENGINE_NSPEC} spectra: kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms; {msps:.1f} Msamples/s per input "
+          f"ms, plain {plain_ms:.3f} ms, bound "
+          f"{results['pfb_factored']['bound_ms']:.3f} ms (by "
+          f"{results['pfb_factored']['bound_by']}); {msps:.1f} Msamples/s "
+          f"per input "
           f"(F-engine bar fs = {cfg.fs_hz / 1e6:.0f} Msamples/s: "
           f"{msps / (cfg.fs_hz / 1e6):.3f}x)", flush=True)
     return counts
@@ -579,19 +729,29 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
                      what=f"pfb_direct {what}")
         ntol += 0 if fast else n
     results["pfb_direct"].update(
+        **pfb_bound(adc, cfg.acc_len, cfg.nchan, ntap),
         max_abs_err=1.0 if ntol else 0.0,
         ms=cuda_ms(lambda: pfb_fused.pfb_direct(adc, window, cfg.nchan, ntap,
                                                 qs), 5),
         plain_ms=cuda_ms(lambda: pfb.pfb_quantize_packed_ref(
             adc, window, cfg.nchan, ntap, qs), 2))
-    r = results["pfb_direct"]
-    print(f"[{card}] pfb_direct: kernel {r['ms']:.3f} ms, plain "
-          f"{r['plain_ms']:.3f} ms per 2400-spectra window at 704 inputs",
-          flush=True)
+    print_kernel(card, "pfb_direct", results["pfb_direct"],
+                 "per 2400-spectra window at 704 inputs")
 
 
 def phase_triu(dev, card: str, results: dict) -> None:
-    """The gulp correlator against its plain version: production shape in
+    """The three gulp correlators against their plain versions."""
+    phase_gulp(dev, card, results, "corr_triu", corr_triu, corr_triu_ref,
+               TILE)
+    phase_gulp(dev, card, results, "corr_blk", cblk.corr_blk,
+               cblk.corr_blk_ref, cblk.TILE)
+    phase_gulp(dev, card, results, "corr_rows", crows.corr_rows,
+               crows.corr_rows_ref, crows.TILE)
+
+
+def phase_gulp(dev, card: str, results: dict, name: str, fn, ref,
+               tile_size: int) -> None:
+    """A gulp correlator against its plain version: production shape in
     both layouts, and a ragged shape (300 inputs, 997 spectra, padded
     cti).  Exact int32 on the upper tiles, zero below them."""
     cfg = LWA352
@@ -605,31 +765,30 @@ def phase_triu(dev, card: str, results: dict) -> None:
                  else (nchan, ntime, ni + pad))
         packed = torch.randint(0, 256, shape, generator=g, device=dev,
                                dtype=torch.uint8)
-        got = corr_triu(packed, layout, ni)
-        want = corr_triu_ref(chan_major(packed, layout, ni))
+        got = fn(packed, layout, ni)
+        want = ref(chan_major(packed, layout, ni))
         torch.cuda.synchronize()
-        tile = torch.arange(ni, device=dev) // TILE
+        tile = torch.arange(ni, device=dev) // tile_size
         valid = tile[:, None] <= tile[None, :]
         for a, b in zip(got, want):
             check(torch.equal(a[:, valid], b[:, valid]),
-                  f"corr_triu != plain on the upper tiles ({ni} inputs, "
+                  f"{name} != plain on the upper tiles ({ni} inputs, "
                   f"{ntime} spectra, {layout})")
-            check(not a[:, ~valid].any(), "corr_triu wrote below the "
+            check(not a[:, ~valid].any(), f"{name} wrote below the "
                   "diagonal tiles")
             err = max(err, max_abs(a[:, valid], b[:, valid]))
-        print(f"corr_triu {ni} inputs x {nchan} channels x {ntime} spectra "
-              f"{layout}: exact int32 on the upper tiles", flush=True)
+        print(f"{name} {ni} inputs x {nchan} channels x {ntime} spectra "
+              f"{layout}: exact int32 on the upper {tile_size}-tiles", flush=True)
         if ni == cfg.ninput and layout == "tci":
             xc = chan_major(packed, layout, ni)
-            results["corr_triu"].update(
-                ms=cuda_ms(lambda: corr_triu(packed, layout, ni), 5),
-                plain_ms=cuda_ms(lambda: corr_triu_ref(xc), 2))
+            results[name].update(
+                ms=cuda_ms(lambda: fn(packed, layout, ni), 5),
+                plain_ms=cuda_ms(lambda: ref(xc), 2),
+                **corr_bound(nchan, ntime, ni, tile_size, 0, 2))
         del got, want
-    results["corr_triu"]["max_abs_err"] = err
-    r = results["corr_triu"]
-    print(f"[{card}] corr_triu: kernel {r['ms']:.3f} ms, plain "
-          f"{r['plain_ms']:.3f} ms per 2400-spectra window at 704 inputs x "
-          f"192 channels", flush=True)
+    results[name]["max_abs_err"] = err
+    print_kernel(card, name, results[name], "per 2400-spectra window at 704 "
+                 "inputs x 192 channels")
 
 
 class GoldenSource(SyntheticSource):
@@ -774,12 +933,26 @@ def decode_streams(cfg, sub_pkts, pb_pkts, ib_pkts, nwin: int):
     return windows, power, vlbi
 
 
+def packet_digests(streams: dict) -> dict:
+    """SHA-256 of each sink's packets, taken in sorted order (loopback UDP
+    keeps no order between senders): equal digests mean the same packets
+    byte for byte."""
+    out = {}
+    for name, pkts in streams.items():
+        h = hashlib.sha256()
+        for p in sorted(bytes(p) for p in pkts):
+            h.update(len(p).to_bytes(4, "little"))
+            h.update(p)
+        out[name] = h.hexdigest()
+    return out
+
+
 def run_driver(dev, card: str, label: str, engines: dict, blocks,
-               gains_np, truth, slow) -> tuple[dict, list, float]:
+               gains_np, truth, slow, mesh=None) -> tuple[dict, dict, float]:
     """One driver run: launch counts to 0, XEnginePipeline over the
-    golden windows with every sink, counts read, products checked.
-    Returns the counts, the host time per window and the run's wall
-    time."""
+    golden windows with every sink (sharded over ``mesh`` if given),
+    counts read, products checked.  Returns the counts, the digest of each
+    sink's packets and the run's wall time."""
     cfg = DRIVER_CFG.replace(**engines)
     nwin = len(blocks)
     CommandBlock.reset_instance_counts()
@@ -799,7 +972,7 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
                           for b in range(cfg.nbeam // 2)})],
         ibeam_outputs=[sink.IBeamOutput(
             cfg, send=sink.UdpSender(*rx["ibeam"].addr))],
-        device="cuda")
+        mesh=mesh, device="cuda")
     t0 = time.perf_counter()
     load_gains(pipe, store, gains_np)
     command(store, pipe.subsel_cmd.command_key, "bl",
@@ -817,8 +990,8 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
     sub_pkts, pb_pkts, ib_pkts = (rx[n].stop() for n in
                                   ("subsel", "pbeam", "ibeam"))
     print(f"[driver {label}] kernel launches: {counts}", flush=True)
-    correlator = "corr_triu" if engines["corr_engine"] == "pallas_triu" \
-        else "corr_acc"
+    correlator = {"pallas_triu": "corr_triu", "pallas_blk": (
+        "corr_acc" if mesh is None else "corr_blk")}[engines["corr_engine"]]
     for name in (correlator, "subsel_gather", "beamform_products"):
         check(counts[name] > 0, f"[driver {label}] {name} not launched")
     check((pipe.ndump_fast, pipe.ndump_slow) == (nwin, 1),
@@ -832,6 +1005,8 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
                              cfg.npol).transpose(1, 3, 2, 4, 0)
         check(np.array_equal(cube[..., k], want),
               f"[driver {label}] COR slow dump vs plain")
+    digests = packet_digests({"cor": cor, "subsel": sub_pkts,
+                              "pbeam": pb_pkts, "ibeam": ib_pkts})
     del cube, cor
     print(f"[driver {label}] COR slow dump ({nbl} packets) scatters to the "
           f"plain slow dump exactly", flush=True)
@@ -868,12 +1043,14 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
           + f"; {wall:.3f} s for {nwin} windows and the slow dump = "
           f"{gbps:.2f} Gb/s sustained (real-time bar "
           f"{cfg.input_gbps:.1f} Gb/s)", flush=True)
-    return counts, per_window, wall
+    return counts, digests, wall
 
 
-def run_driver_path(dev, card: str, blocks, gains_np) -> dict:
+def run_driver_path(dev, card: str, blocks, gains_np) -> tuple:
     """The fourth path: the driver in both engine sets over the same
-    golden windows.  Returns the launch counts summed over both runs."""
+    golden windows.  Returns the launch counts summed over both runs, the
+    plain products the runs were held to (for the mesh driver run) and the
+    ``TPU_ENGINES`` run's packet digests and wall time."""
     cfg = DRIVER_CFG
     gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
     pairs = torch.from_numpy(cs.baselines_to_inputs(
@@ -885,12 +1062,281 @@ def run_driver_path(dev, card: str, blocks, gains_np) -> dict:
     sys.setswitchinterval(5e-4)
     try:
         for label, engines in DRIVER_ENGINES.items():
-            counts, _, _ = run_driver(dev, card, label, engines, blocks,
-                                      gains_np, truth, slow)
+            counts, digests, wall = run_driver(dev, card, label, engines,
+                                               blocks, gains_np, truth, slow)
             total = {name: total[name] + counts[name] for name in KERNELS}
     finally:
         sys.setswitchinterval(switch)
-    return total
+    return total, truth, slow, digests, wall
+
+
+#: the fifth path: mesh shapes over one card, every shard on ``cuda:0``
+MESH_SHAPES = ((2, 2), (1, 4))
+MESH_CFG = DRIVER_CFG.replace(**TPU_ENGINES)
+
+
+def gulps_of(dev, cfg, blocks):
+    """The golden windows gulp by gulp on the card: (window, first gulp of
+    its window, last gulp, packed [ntime_gulp, nchan, ninput])."""
+    g, n = cfg.ntime_gulp, cfg.acc_len // cfg.ntime_gulp
+    for w, block in enumerate(blocks):
+        win = torch.from_numpy(block.reshape(cfg.acc_len, cfg.nchan,
+                                             cfg.ninput)).to(dev)
+        for k in range(n):
+            yield w, k == 0, k == n - 1, win[k * g:(k + 1) * g]
+
+
+def vis_equal(got: Vis, want: Vis) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def unshard_vis(vis) -> Vis:
+    return Vis(*(pm.unshard(p) for p in vis))
+
+
+def beams_match(got_p, got_v, want_p, want_v, what: str) -> bool:
+    """Power and VLBI of a sharded call within the beam gate of the
+    unsharded step's; returns whether both are bit-identical."""
+    check(power_close(got_p, want_p), f"{what}: beam power vs unsharded")
+    check(power_close(got_v, want_v), f"{what}: VLBI vs unsharded")
+    return torch.equal(got_p, want_p) and torch.equal(got_v, want_v)
+
+
+def mesh_xb_unsharded(dev, blocks, gains, pairs) -> tuple[list, Vis]:
+    """The X/B configuration's golden windows gulp by gulp through the
+    unsharded ``xengine_step``: per call the products (and the dense fast
+    dump on dump calls), and the dense slow dump."""
+    cfg = MESH_CFG
+    state = init_state(cfg, dev)
+    ref = []
+    for w, first, last, gulp in gulps_of(dev, cfg, blocks):
+        state, out = xengine_step(state, gulp, gains, pairs, first, last,
+                                  w == 0, cfg)
+        ref.append((out, dense_vis(state.vis_fast, cfg) if last else None))
+    return ref, dense_vis(state.vis_slow, cfg)
+
+
+def mesh_xb(dev, blocks, gains, pairs, ref: list, ref_slow: Vis) -> None:
+    """The same stream through ``xengine_sharded_state_fn`` on each mesh
+    shape, against the unsharded run."""
+    cfg = MESH_CFG
+    for shape in MESH_SHAPES:
+        label = f"[mesh {shape[0]}x{shape[1]}]"
+        mesh = pm.make_mesh(*shape, devices=["cuda:0"] * 4)
+        before = read_counts()
+        steps = {}
+        state = pm.zero_sharded_state(cfg, mesh)
+        same_bits = True
+        for (w, first, last, gulp), (want, want_fast) in zip(
+                gulps_of(dev, cfg, blocks), ref):
+            key = (first, last, w == 0)
+            if key not in steps:
+                steps[key] = pm.xengine_sharded_state_fn(cfg, mesh, *key)
+            state, out, vlbi = steps[key](state, gulp, gains, pairs)
+            what = f"{label} window {w}"
+            same_bits &= beams_match(pm.unshard(out.bf_power),
+                                     pm.unshard(vlbi), want.bf_power,
+                                     want.vlbi, what)
+            check((out.vis is not None) == last, f"{what}: vis on a dump "
+                  "call only")
+            if last:
+                check(vis_equal(unshard_vis(out.vis), want_fast),
+                      f"{what}: fast dump vs unsharded")
+                check(vis_equal(unshard_vis(out.subsel), want.subsel),
+                      f"{what}: subsel vs unsharded")
+        check(vis_equal(unshard_vis(state[1]), ref_slow),
+              f"{label} slow dump vs unsharded")
+        torch.cuda.synchronize()
+        after = read_counts()
+        made = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        check(made.get("corr_blk", 0) > 0, f"{label} corr_blk not launched")
+        nshard = shape[0] * shape[1]
+        per_shard = {k: v / nshard for k, v in made.items()}
+        print(f"{label} {len(blocks)} windows gulp by gulp + slow dump on "
+              f"{nshard} shards of cuda:0: fast, slow, subsel equal the "
+              f"unsharded step's exactly; power and VLBI within rtol 1e-4, "
+              f"bit-identical: {same_bits}; kernel launches {made}, per "
+              f"shard {per_shard}", flush=True)
+
+
+class MeshFx:
+    """One FX window with a carried ADC tail through
+    ``fx_sharded_state_fn`` at 2x2 against the unsharded ``fx_step``."""
+
+    def __init__(self, dev, qs: float, gains, pairs):
+        self.cfg = cfg = FX_CFG.replace(acc_len_slow=FX_CFG.acc_len,
+                                        **TPU_ENGINES)
+        L = 2 * cfg.nchan
+        self.halo = (cfg.pfb_ntap - 1) * L
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        self.adc = torch.randint(
+            -90, 91, (self.halo + cfg.acc_len * L, cfg.ninput), generator=g,
+            device=dev, dtype=torch.int8)
+        self.window = torch.from_numpy(pfb.pfb_window(
+            cfg.nchan, cfg.pfb_ntap)).to(dev)
+        self.scale = torch.tensor(qs, device=dev)
+        self.dev, self.gains, self.pairs = dev, gains, pairs
+        self.mesh = pm.make_mesh(2, 2, devices=["cuda:0"] * 4)
+
+    def sharded_args(self) -> tuple:
+        return (self.adc[self.halo:], self.adc[:self.halo], self.window,
+                self.scale)
+
+    def unsharded(self) -> None:
+        cfg = self.cfg
+        state, self.want = fx_step(
+            init_state(cfg, self.dev), self.adc, self.window, self.scale,
+            self.gains, self.pairs, True, True, True, cfg)
+        self.want_fast = dense_vis(state.vis_fast, cfg)
+        self.want_bytes = pfb.channelize_pack_imajor(
+            self.adc, self.window, cfg, self.scale).permute(1, 2, 0)
+
+    def sharded(self) -> None:
+        """Packed bytes after the corner-turn, fast, slow and subsel equal
+        to the unsharded step's; beam products within the gate."""
+        cfg, mesh, want = self.cfg, self.mesh, self.want
+        got = pm.unshard(pm.fx_packed_sharded_fn(cfg, mesh)(
+            *self.sharded_args()))
+        check(torch.equal(got, self.want_bytes), "[mesh FX 2x2] packed "
+              "bytes after the corner-turn vs the unsharded channelizer's")
+        del got
+        step = pm.fx_sharded_state_fn(cfg, mesh, True, True, True)
+        state, out, vlbi = step(pm.zero_sharded_state(cfg, mesh),
+                                *self.sharded_args(), self.gains, self.pairs)
+        same_bits = beams_match(pm.unshard(out.bf_power), pm.unshard(vlbi),
+                                want.bf_power, want.vlbi, "[mesh FX 2x2]")
+        check(vis_equal(unshard_vis(out.vis), self.want_fast)
+              and vis_equal(unshard_vis(state[1]), self.want_fast),
+              "[mesh FX 2x2] fast and slow vs unsharded")
+        check(vis_equal(unshard_vis(out.subsel), want.subsel),
+              "[mesh FX 2x2] subsel vs unsharded")
+        torch.cuda.synchronize()
+        print(f"[mesh FX 2x2] one int8 window with the carried tail: packed "
+              f"bytes, fast, slow, subsel equal the unsharded fx_step's "
+              f"exactly; power and VLBI within rtol 1e-4, bit-identical: "
+              f"{same_bits}", flush=True)
+        del self.want, self.want_fast, self.want_bytes
+
+    def times(self, card: str) -> None:
+        cfg = self.cfg
+        state = init_state(cfg, self.dev)
+        fx_ms = cuda_ms(lambda: fx_step(
+            state, self.adc, self.window, self.scale, self.gains, self.pairs,
+            True, True, False, cfg), 5)
+        del state
+        state = pm.zero_sharded_state(cfg, self.mesh)
+        step = pm.fx_sharded_state_fn(cfg, self.mesh, True, True, False)
+        mesh_ms = cuda_ms(lambda: step(state, *self.sharded_args(),
+                                       self.gains, self.pairs), 5)
+        print(f"[{card}] FX window, device time: fx_sharded_state_fn 2x2 on "
+              f"one card {mesh_ms:.3f} ms, unsharded fx_step {fx_ms:.3f} ms",
+              flush=True)
+
+
+def mesh_times(dev, card: str, gains, pairs) -> None:
+    """Device time per whole-window call of the sharded X/B step on one
+    card beside the unsharded step with the same engines."""
+    cfg = MESH_CFG
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    packed = torch.randint(0, 256, (cfg.acc_len, cfg.nchan, cfg.ninput),
+                           generator=g, device=dev, dtype=torch.uint8)
+    state = init_state(cfg, dev)
+    ms = {"unsharded": cuda_ms(lambda: xengine_step(
+        state, packed, gains, pairs, True, True, False, cfg), 5)}
+    del state
+    for shape in MESH_SHAPES:
+        mesh = pm.make_mesh(*shape, devices=["cuda:0"] * 4)
+        state = pm.zero_sharded_state(cfg, mesh)
+        step = pm.xengine_sharded_state_fn(cfg, mesh, True, True, False)
+        ms[f"{shape[0]}x{shape[1]}"] = cuda_ms(
+            lambda: step(state, packed, gains, pairs), 5)
+        del state, step
+    print(f"[{card}] X/B window (dump call, one 2400-spectra block), device "
+          f"time: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()),
+          flush=True)
+
+
+def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
+                  digests: dict, wall: float) -> dict:
+    """The fifth path: the sharded programs of ``parallel/mesh.py`` at
+    full width with every shard on this card, and the driver over a 2x2
+    mesh with every sink.  Returns the path's launch counts."""
+    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
+    pairs = torch.from_numpy(PAIRS).to(dev)
+    # the unsharded runs come first: their launches are not the path's
+    ref, ref_slow = mesh_xb_unsharded(dev, blocks, gains, pairs)
+    fx = MeshFx(dev, qs, gains, pairs)
+    fx.unsharded()
+    zero_counts()
+    mesh_xb(dev, blocks, gains, pairs, ref, ref_slow)
+    del ref, ref_slow
+    fx.sharded()
+    programs = read_counts()
+    for name in ("corr_blk", "pfb_direct", "beamform_products",
+                 "subsel_gather"):
+        check(programs[name] > 0, f"[mesh] {name} not launched by the "
+              "sharded programs")
+    check(programs["corr_acc"] == 0, "[mesh] the sharded programs launched "
+          "the unsharded correlator")
+    print(f"[mesh] kernel launches of the sharded programs: {programs}",
+          flush=True)
+    fx.times(card)
+    del fx
+    mesh_times(dev, card, gains, pairs)
+    vols = pm.collective_volumes(LWA352, 2, 2)
+    print("collective_volumes(LWA352, 2, 2): " + json.dumps(vols),
+          flush=True)
+    check(vols["mesh"]["devices"] == 4 and len(vols["collectives"]) == 4,
+          "collective_volumes")
+
+    mesh = pm.make_mesh(2, 2, devices=["cuda:0"] * 4)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        driver, got, mesh_wall = run_driver(
+            dev, card, "mesh 2x2", dict(TPU_ENGINES), blocks, gains_np,
+            truth, slow, mesh=mesh)
+    finally:
+        sys.setswitchinterval(switch)
+    check(got == digests, f"[driver mesh 2x2] packets differ from the "
+          f"unsharded driver run's: {got} vs {digests}")
+    print(f"[driver mesh 2x2] COR, subsel, PBEAM and IBEAM packets byte for "
+          f"byte those of the unsharded TPU_ENGINES run ({mesh_wall:.3f} s "
+          f"against {wall:.3f} s wall)", flush=True)
+    return {name: programs[name] + driver[name] for name in KERNELS}
+
+
+def run_schedules_path(dev, cfg, blocks, slow) -> dict:
+    """The two correlator schedules that no engine name selects, each over
+    the golden stream through its wrapper: ``corr_acc(unpack_cache=True)``
+    carries the fast and slow accumulators gulp by gulp over the three
+    windows, ``corr_rows`` correlates each gulp and the results are summed.
+    Both slow sums must equal the plain slow dump.  Returns the counts."""
+    zero_counts()
+    state = init_state(cfg, dev)
+    total = None
+    for w, first, last, gulp in gulps_of(dev, cfg, blocks):
+        corr_acc(gulp, *state, first, last, w == 0, unpack_cache=True)
+        vis = crows.corr_rows(gulp)
+        if total is None:
+            total = vis
+        else:
+            for a, b in zip(total, vis):
+                a.add_(b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = Vis(*(torch.from_numpy(p).to(dev) for p in slow))
+    check(vis_equal(dense_vis(state.vis_slow, cfg), want),
+          "corr_acc(unpack_cache=True) slow dump over the golden stream")
+    check(vis_equal(dense_vis(total, cfg), want),
+          "corr_rows summed over the golden stream")
+    for name in ("corr_acc_cached", "corr_rows"):
+        check(counts[name] > 0, f"{name} not launched")
+    print(f"correlator schedules over the golden stream: slow dumps of "
+          f"corr_acc(unpack_cache=True) and of summed corr_rows gulps equal "
+          f"the plain slow dump exactly; kernel launches {counts}",
+          flush=True)
+    return counts
 
 
 def main() -> int:
@@ -939,11 +1385,18 @@ def main() -> int:
     # path 3, F-engine: the channelizer alone at 4096 channels
     fe = run_fengine(dev, card, results)
     # path 4, the operator entry point's threaded driver
-    dr = run_driver_path(dev, card, blocks, gains_np)
-    del blocks
-    launches = {name: xb[name] + fx[name] + fe[name] + dr[name]
-                for name in KERNELS}
-    print(f"kernel launches over the four paths: {launches}", flush=True)
+    dr, truth, slow, digests, wall = run_driver_path(dev, card, blocks,
+                                                     gains_np)
+    # path 5, the device mesh: sharded programs and the mesh driver
+    me = run_mesh_path(dev, card, blocks, gains_np, qs, truth, slow,
+                       digests, wall)
+    # the correlator schedules without an engine name
+    sc = run_schedules_path(dev, DRIVER_CFG, blocks, slow)
+    del blocks, truth, slow
+    launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
+                + sc[name] for name in KERNELS}
+    print(f"kernel launches over the five paths and the schedules run: "
+          f"{launches}", flush=True)
 
     cfg = LWA352
     state = init_state(cfg, dev)

@@ -3,6 +3,7 @@
 sequence of store writes; the driver's command blocks; the monitor bridge;
 the in-process store."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -15,6 +16,7 @@ from caltech_bifrost_dsp_tpu.control import store as jstore
 from caltech_bifrost_dsp_tpu.io import sink as jsink
 from caltech_bifrost_dsp_tpu.runtime import driver as jdriver
 from caltech_bifrost_dsp_tpu.utils import proclog as jproclog
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.control import command, monitor, store
 from caltech_bifrost_dsp_tpu_torch.io import sink
 from caltech_bifrost_dsp_tpu_torch.runtime import driver
@@ -22,6 +24,8 @@ from caltech_bifrost_dsp_tpu_torch.utils import proclog
 
 HOST = "xhost"
 CFG = C.TINY
+#: the port's config, from the JAX one field by field
+PCFG = TC.XEngineConfig(**dataclasses.asdict(CFG))
 
 
 @pytest.fixture(autouse=True)
@@ -228,7 +232,7 @@ def test_output_command_blocks_match_jax(tmp_path):
     """dest_file / dest_ip / max_mbps on a COR sink and per-beam
     destinations on a PBEAM sink take effect like the JAX blocks'."""
     jout = jsink.CorrFullOutput(CFG, max_mbps=100)
-    pout = sink.CorrFullOutput(CFG, max_mbps=100)
+    pout = sink.CorrFullOutput(PCFG, max_mbps=100)
     jst, pst = jstore.MemoryStore(), store.MemoryStore()
     jb = jdriver.OutputCommandBlock("CorrOutputFull", jout, store=jst)
     pb = driver.OutputCommandBlock("CorrOutputFull", pout, store=pst)
@@ -251,14 +255,14 @@ def test_output_command_blocks_match_jax(tmp_path):
     pb.apply_pending()
     assert pout.send is None and "last_apply_error" in pb.stats
 
-    ib = sink.IBeamOutput(CFG)
+    ib = sink.IBeamOutput(PCFG)
     ob = driver.OutputCommandBlock("BeamformVlbiOutput", ib,
                                    store=store.MemoryStore())
     _put(ob.store, ob.command_key, _cmd(1, max_mbps=10 ** 5))
     ob.apply_pending()
     assert ib.throttle.max_bps == sink.IBeamOutput.MAX_BPS
 
-    jpb, ppb = jsink.PBeamOutput(CFG), sink.PBeamOutput(CFG)
+    jpb, ppb = jsink.PBeamOutput(CFG), sink.PBeamOutput(PCFG)
     jb = jdriver.BeamOutputCommandBlock(jpb, 2, store=jst)
     pb = driver.BeamOutputCommandBlock(ppb, 2, store=pst)
     w = _cmd(1, dest_ip=["127.0.0.1", "0.0.0.0"], dest_port=[7000, 7001])
@@ -272,7 +276,7 @@ def test_output_command_blocks_match_jax(tmp_path):
 
 def test_fengine_block_matches_jax():
     jb = jdriver.FEngineCommandBlock(CFG, 0.5, store=jstore.MemoryStore())
-    pb = driver.FEngineCommandBlock(CFG, 0.5, store=store.MemoryStore())
+    pb = driver.FEngineCommandBlock(PCFG, 0.5, store=store.MemoryStore())
     eq = list(np.linspace(0.5, 2.0, CFG.nchan))
     for w in [_cmd(1, eq_gains=eq, quant_scale=2), _cmd(2, eq_gains=[1.0]),
               _cmd(3, quant_scale=-1.0)]:
@@ -290,7 +294,7 @@ def test_beamform_and_subsel_blocks_match_jax():
     """Calibration gains, a delayed beam load, a malformed command and a
     baseline selection reach the same active gains and pairs."""
     jb = jdriver.BeamformCommandBlock(CFG, store=jstore.MemoryStore())
-    pb = driver.BeamformCommandBlock(CFG, store=store.MemoryStore())
+    pb = driver.BeamformCommandBlock(PCFG, store=store.MemoryStore())
     rng = np.random.RandomState(7)
     data = rng.randint(-8, 9, 2 * CFG.nchan).astype(float).tolist()
     delays = rng.uniform(0, 50, CFG.ninput).tolist()
@@ -318,7 +322,7 @@ def test_beamform_and_subsel_blocks_match_jax():
     assert pb.stats["cal_gains1"] == jb.stats["cal_gains1"]
 
     js = jdriver.SubselCommandBlock(CFG, store=jstore.MemoryStore())
-    ps = driver.SubselCommandBlock(CFG, store=store.MemoryStore())
+    ps = driver.SubselCommandBlock(PCFG, store=store.MemoryStore())
     bl = [[[k % 16, 1], [(3 * k) % 16, 0]] for k in range(CFG.nvis_out)]
     for w in [_cmd(1, baselines=bl[:5]), _cmd(2, baselines=bl)]:
         _put(js.store, js.command_key, w)

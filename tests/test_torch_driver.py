@@ -11,9 +11,10 @@ the same gulp in both.
 
 Also here: the golden checkfile gate, a sequence break, and the CLI
 (``--subsel-dest`` on a loopback socket; every flag that is not ported
-exits 2).
+exits 2, and so does ``--mesh`` on a host without the CUDA devices).
 """
 
+import dataclasses
 import json
 import threading
 
@@ -33,6 +34,7 @@ from caltech_bifrost_dsp_tpu_torch.control.command import CommandBlock
 from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
 from caltech_bifrost_dsp_tpu_torch.io import packets as pk
 from caltech_bifrost_dsp_tpu_torch.io import sink
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.io import source
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.scripts import pipeline
@@ -40,7 +42,15 @@ from caltech_bifrost_dsp_tpu_torch.utils import proclog
 
 torch.set_num_threads(1)
 
+
+
+def port_cfg(jcfg):
+    """The port's config from the JAX one, field by field."""
+    return TC.XEngineConfig(**dataclasses.asdict(jcfg))
+
+
 CFG = C.TINY
+PCFG = port_cfg(CFG)
 SYNC = 1_700_000_000
 ENGINES = {
     "triu": dict(corr_engine="pallas_triu", subsel_engine="pallas",
@@ -114,10 +124,11 @@ def make_pipes(cfg, jsrc, psrc, checkfile=None, **kw):
     """(JAX pipeline, port pipeline, their collectors and stores)."""
     jgot, pgot = Collect(), Collect()
     jstore, pstore = JStore(), MemoryStore()
+    pcfg = port_cfg(cfg)
     jp = JPipe(cfg, jsrc, store=jstore, sync_time=SYNC,
                **sinks(jsink, cfg, jgot, checkfile), **kw)
-    pp = XEnginePipeline(cfg, psrc, store=pstore, sync_time=SYNC,
-                         device="cpu", **sinks(sink, cfg, pgot, checkfile),
+    pp = XEnginePipeline(pcfg, psrc, store=pstore, sync_time=SYNC,
+                         device="cpu", **sinks(sink, pcfg, pgot, checkfile),
                          **kw)
     return (jp, jstore, jgot), (pp, pstore, pgot)
 
@@ -164,7 +175,7 @@ def test_driver_packets_match_jax_under_commands(engines):
     cfg = CFG.replace(**ENGINES[engines])
     (jp, js, jgot), (pp, ps, pgot) = make_pipes(
         cfg, jsource.DummySource(cfg, mode="random", seed=11),
-        source.SyntheticSource(cfg, mode="random", seed=11))
+        source.SyntheticSource(port_cfg(cfg), mode="random", seed=11))
     baselines = new_baselines(cfg, 12)
 
     def mid_run_commands(pipe, store):
@@ -197,7 +208,8 @@ def test_driver_fx_packets_match_jax():
     cfg = FX_CFG.replace(pfb_fft_impl="matmul")
     (jp, js, jgot), (pp, ps, pgot) = make_pipes(
         cfg, jsource.ADCSource(cfg, amplitude=32.0, seed=21),
-        source.ADCSource(cfg, amplitude=32.0, seed=21), fx_mode=True,
+        source.ADCSource(port_cfg(cfg), amplitude=32.0, seed=21),
+        fx_mode=True,
         quant_scale=0.1)
     for pipe, store in ((jp, js), (pp, ps)):
         load_gains(pipe, store, cfg, 22)
@@ -229,7 +241,7 @@ def test_sequence_break_rearms_like_jax():
                       bf_engine="xla")
     (jp, js, jgot), (pp, ps, pgot) = make_pipes(
         cfg, _JumpJ(cfg, mode="random", seed=31),
-        _JumpP(cfg, mode="random", seed=31))
+        _JumpP(port_cfg(cfg), mode="random", seed=31))
     for pipe, store in ((jp, js), (pp, ps)):
         load_gains(pipe, store, cfg, 32)
     # the re-armed start lies 10 windows past the break
@@ -242,7 +254,7 @@ def test_sequence_break_rearms_like_jax():
 
 
 def test_golden_checkfile_gate(tmp_path):
-    cfg = CFG
+    cfg = PCFG
     ntime = 2 * cfg.acc_len_slow
     inp, corr = str(tmp_path / "in.dat"), str(tmp_path / "corr.dat")
     jgolden.write_input_file(inp, ntime, cfg.nchan, cfg.nstand, cfg.npol,
@@ -271,7 +283,7 @@ def test_golden_checkfile_gate(tmp_path):
 
 
 def test_per_gulp_mode_equals_batched():
-    cfg = CFG
+    cfg = PCFG
     runs = []
     for batch in (True, False):
         CommandBlock.reset_instance_counts()
@@ -294,10 +306,16 @@ def test_per_gulp_mode_equals_batched():
 @pytest.mark.parametrize("arg", ["mesh", "stub_device_ms", "history_nbyte",
                                  "dump_direct"])
 def test_unported_driver_options_raise(arg):
-    value = {"mesh": object(), "stub_device_ms": 1.0, "history_nbyte": 1,
+    # mesh= is ported (tests/test_torch_mesh_driver.py); what still raises
+    # is a mesh that lies on another device type than ``device``
+    from caltech_bifrost_dsp_tpu_torch.parallel.mesh import make_mesh
+
+    value = {"mesh": make_mesh(1, 1, devices=["cpu"]),
+             "stub_device_ms": 1.0, "history_nbyte": 1,
              "dump_direct": True}[arg]
-    with pytest.raises(NotImplementedError):
-        XEnginePipeline(CFG, source.SyntheticSource(CFG), device="cpu",
+    device = "cuda" if arg == "mesh" else "cpu"
+    with pytest.raises((NotImplementedError, ValueError)):
+        XEnginePipeline(PCFG, source.SyntheticSource(PCFG), device=device,
                         **{arg: value})
 
 
@@ -306,8 +324,8 @@ def test_stage_failure_is_raised_by_run():
         def send_subsel(self, *a, **k):
             raise OSError("sink down")
 
-    pp = XEnginePipeline(CFG, source.SyntheticSource(CFG), device="cpu",
-                         subsel_outputs=[Broken(CFG, send=print)])
+    pp = XEnginePipeline(PCFG, source.SyntheticSource(PCFG), device="cpu",
+                         subsel_outputs=[Broken(PCFG, send=print)])
     with pytest.raises(RuntimeError, match="stage failed"):
         pp.run(40, timeout_s=120)
 
@@ -364,9 +382,15 @@ def test_cli_subsel_over_loopback_matches_jax_driver():
     ["--bufgbytes", "1"], ["--dump-direct"], ["--no-fakesource"]])
 def test_cli_unported_flags_exit_2(extra, capsys):
     args = ["--fakesource", "--device", "cpu", "--ngulp", "1"]
+    wanted = "not ported"
     if extra == ["--no-fakesource"]:
         args, extra = ["--device", "cpu", "--ngulp", "1"], []
+    if extra == ["--mesh", "2x4"]:
+        # --mesh is ported; it exits 2 only for want of CUDA devices
+        if torch.cuda.device_count() >= 8:
+            pytest.skip("8 CUDA devices are present")
+        args[2], wanted = "cuda", "CUDA devices"
     with pytest.raises(SystemExit) as exc:
         pipeline.main(args + extra)
     assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert wanted in capsys.readouterr().err

@@ -17,6 +17,7 @@ against the JAX step on the port's bytes, and (c) the whole JAX
 ``fx_step_jit`` exactly wherever the bytes are identical.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -32,6 +33,7 @@ from caltech_bifrost_dsp_tpu.io import source as jsource
 from caltech_bifrost_dsp_tpu.models import xengine as jx
 from caltech_bifrost_dsp_tpu.ops import pfb as jpfb
 from caltech_bifrost_dsp_tpu.ops.beamform import BeamGains as JGains
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.io import source as psource
 from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 from caltech_bifrost_dsp_tpu_torch.ops import pfb
@@ -57,6 +59,15 @@ CYCLE = [(T, F, F), (F, F, F), (F, T, T), (T, T, F), (T, F, F), (F, T, F),
 RCFG = C.XEngineConfig(nstand=8, nchan=16, ntime_gulp=48, acc_len=96,
                        acc_len_slow=192, nbeam=2, ntime_sum=12, nchan_sum=4,
                        pfb_ntap=4, adc_dtype="int8")
+
+
+def port_cfg(jcfg):
+    """The port's config from the JAX one, field by field."""
+    return TC.XEngineConfig(**dataclasses.asdict(jcfg))
+
+
+#: the runner's config on the port's side
+PRCFG = port_cfg(RCFG)
 
 
 def close(got, want):
@@ -120,8 +131,8 @@ def gains_pairs(cfg, seed):
 @pytest.mark.parametrize("engines", sorted(ENGINES))
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_fx_cycle_matches_jax(name, engines, dtype):
-    cfg = CONFIGS[name].replace(adc_dtype=dtype)
-    jcfg = cfg.replace(**ENGINES[engines])
+    base = CONFIGS[name].replace(adc_dtype=dtype)
+    jcfg, cfg = base.replace(**ENGINES[engines]), port_cfg(base)
     rng = np.random.RandomState(11)
     gr, gi, pairs = gains_pairs(cfg, 12)
     w = pfb.pfb_window(cfg.nchan, cfg.pfb_ntap)
@@ -161,8 +172,8 @@ def test_fx_cycle_matches_jax(name, engines, dtype):
 
 
 def test_fx_cti_layout_and_per_channel_scale_match_jax():
-    cfg = CONFIGS["ragged"].replace(adc_dtype="int8")
-    jcfg = cfg.replace(**ENGINES["tpu"])
+    base = CONFIGS["ragged"].replace(adc_dtype="int8")
+    jcfg, cfg = base.replace(**ENGINES["tpu"]), port_cfg(base)
     rng = np.random.RandomState(13)
     gr, gi, pairs = gains_pairs(cfg, 14)
     w = pfb.pfb_window(cfg.nchan, cfg.pfb_ntap)
@@ -192,9 +203,10 @@ def test_fx_cti_layout_and_per_channel_scale_match_jax():
 @pytest.mark.parametrize("mode", ["noise", "tone"])
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 def test_adc_source_matches_jax(mode, dtype):
-    cfg = RCFG.replace(adc_dtype=dtype)
+    jcfg = RCFG.replace(adc_dtype=dtype)
+    cfg = port_cfg(jcfg)
     amp = 32.0 if dtype == "int8" else 4.0
-    js = jsource.ADCSource(cfg, mode=mode, tone_chan=3, amplitude=amp)
+    js = jsource.ADCSource(jcfg, mode=mode, tone_chan=3, amplitude=amp)
     ps = psource.ADCSource(cfg, mode=mode, tone_chan=3, amplitude=amp)
     for (jt, jg), (pt, pg) in zip(js.stream(3, seq0=96),
                                   ps.stream(3, seq0=96)):
@@ -214,7 +226,7 @@ def test_runner_fx_whole_window_equals_per_gulp():
     """One call per window with the FIR history staged in front equals
     per-gulp fx_step calls that carry the history themselves (the
     runner's per-gulp fallback)."""
-    cfg = RCFG
+    cfg = PRCFG
     gulps = _gulps(cfg, 8)
     runner = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
     whole = list(runner.run(iter(gulps)))
@@ -249,8 +261,8 @@ def test_runner_fx_whole_window_equals_per_gulp():
 def test_runner_fx_matches_jax_stream():
     """Whole-window calls with the carried FIR history equal JAX
     ``fx_step_jit`` fed the driver's ``concat(tail, block)``."""
-    cfg = RCFG
-    jcfg = cfg.replace(pfb_fft_impl="matmul")
+    cfg = PRCFG
+    jcfg = RCFG.replace(pfb_fft_impl="matmul")
     gulps = _gulps(cfg, 8, seed=22)
     gr, gi, pairs = gains_pairs(cfg, 23)
     runner = XEngineRunner(cfg, "cpu", gains=px.gains_from_numpy(gr, gi),
@@ -287,7 +299,7 @@ def test_runner_fx_history_resets_on_new_sequence():
     """After a sequence break the FIR history restarts at zero (the JAX
     driver's test_fx_tail_resets_on_sequence_break): products after the
     break equal a fresh runner's on the same gulps."""
-    cfg = RCFG
+    cfg = PRCFG
     g = cfg.ntime_gulp
     gulps = _gulps(cfg, 10, seed=24)
     tails = []
@@ -318,21 +330,21 @@ def test_runner_fx_history_resets_on_new_sequence():
 
 
 def test_runner_fx_single_tap_history_stays_empty():
-    cfg = RCFG.replace(pfb_ntap=1)
+    cfg = PRCFG.replace(pfb_ntap=1)
     runner = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
     assert runner.adc_tail.shape == (0, cfg.ninput)
     list(runner.run(iter(_gulps(cfg, 2))))
     assert runner.adc_tail.shape == (0, cfg.ninput)
     assert runner.ndump_fast == 1
     with pytest.raises(ValueError, match="adc_tail"):
-        XEngineRunner(RCFG, "cpu", fx=True,
+        XEngineRunner(PRCFG, "cpu", fx=True,
                       adc_tail=np.zeros((5, RCFG.ninput), np.int8))
 
 
 def test_runner_fx_eq_gains_equal_per_channel_scale():
     """eq_gains * quant_scale (float32, as the JAX FEngine block forms
     it) gives the same products as passing that vector to fx_step."""
-    cfg = RCFG
+    cfg = PRCFG
     eq = np.random.RandomState(25).uniform(0.5, 2.0, cfg.nchan).tolist()
     vec = np.asarray(eq, np.float32) * np.float32(0.1)
     np.testing.assert_array_equal(fx_scale(0.1, eq), vec)
@@ -353,7 +365,7 @@ def test_runner_fx_eq_gains_equal_per_channel_scale():
 def test_runner_starts_from_jax_tail():
     """A JAX driver's ``_adc_tail`` starts the port's runner at the same
     point: equal to running the previous gulps through the runner."""
-    cfg = RCFG
+    cfg = PRCFG
     gulps = _gulps(cfg, 4, seed=27)
     full = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
     prods = list(full.run(iter(gulps)))

@@ -138,7 +138,7 @@ def test_launch_counters_count_kernel_launches(dev):
 def test_xengine_step_on_card_matches_cpu(dev, layout):
     """The fused step on the card against the same step on CPU tensors
     (plain versions) over a full fast+slow cycle at a ragged geometry."""
-    from caltech_bifrost_dsp_tpu.config import TINY
+    from caltech_bifrost_dsp_tpu_torch.config import TINY
     from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 
     cfg = TINY.replace(nstand=36, nchan=8)

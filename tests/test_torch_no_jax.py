@@ -1,5 +1,6 @@
 """The port, its CLI, the FX bench and ``chip_smoke.py`` import without
-JAX, an ``XEnginePipeline`` runs on the CPU in a process without JAX, and
+JAX and without any module of the JAX package, an ``XEnginePipeline`` runs
+on the CPU (unsharded and on a 2x2 mesh) in such a process, and
 the CLI and the bench refuse to run on a host without a card."""
 
 import os
@@ -16,6 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 IMPORT_ALL = """
 import sys
+import caltech_bifrost_dsp_tpu_torch.config
 import caltech_bifrost_dsp_tpu_torch.control.command
 import caltech_bifrost_dsp_tpu_torch.control.monitor
 import caltech_bifrost_dsp_tpu_torch.control.store
@@ -23,18 +25,24 @@ import caltech_bifrost_dsp_tpu_torch.io.packets
 import caltech_bifrost_dsp_tpu_torch.io.sink
 import caltech_bifrost_dsp_tpu_torch.io.source
 import caltech_bifrost_dsp_tpu_torch.models.xengine
+import caltech_bifrost_dsp_tpu_torch.ops.corr_blk
+import caltech_bifrost_dsp_tpu_torch.ops.corr_rows
 import caltech_bifrost_dsp_tpu_torch.ops.corr_triu
 import caltech_bifrost_dsp_tpu_torch.ops.pfb
 import caltech_bifrost_dsp_tpu_torch.ops.pfb_fused
+import caltech_bifrost_dsp_tpu_torch.parallel.mesh
+import caltech_bifrost_dsp_tpu_torch.runtime.arming
 import caltech_bifrost_dsp_tpu_torch.runtime.driver
+import caltech_bifrost_dsp_tpu_torch.runtime.ring
 import caltech_bifrost_dsp_tpu_torch.runtime.runner
 import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
 import caltech_bifrost_dsp_tpu_torch.utils.proclog
 import chip_smoke
-from caltech_bifrost_dsp_tpu.config import TINY
+from caltech_bifrost_dsp_tpu_torch.config import TINY
 from caltech_bifrost_dsp_tpu_torch.io.sink import CorrPartOutput
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
+from caltech_bifrost_dsp_tpu_torch.parallel.mesh import make_mesh
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
 XEngineRunner(TINY.replace(adc_dtype="int8"), "cpu", fx=True)
@@ -45,9 +53,20 @@ pipe = XEnginePipeline(cfg, SyntheticSource(cfg, mode="random"),
                        device="cpu")
 pipe.run(20, timeout_s=60)
 assert pipe.ndump_fast == 4 and pipe.ndump_slow == 2 and pkts
+mpkts = []
+mpipe = XEnginePipeline(cfg, SyntheticSource(cfg, mode="random"),
+                        subsel_outputs=[CorrPartOutput(cfg,
+                                                       send=mpkts.append)],
+                        device="cpu",
+                        mesh=make_mesh(2, 2, devices=["cpu"] * 4))
+mpipe.run(20, timeout_s=60)
+assert mpkts == pkts
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "jaxlib")
 assert not bad, bad
+ref = sorted(m for m in sys.modules if m == "caltech_bifrost_dsp_tpu"
+             or m.startswith("caltech_bifrost_dsp_tpu."))
+assert not ref, ref
 print("no jax")
 """
 

@@ -3,6 +3,8 @@
 The golden CLI gate: JAX ``make_golden`` writes the files, the port's CLI
 (``--device cpu``) must exit 0 on them and 1 on a corrupted corr file."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from caltech_bifrost_dsp_tpu.scripts.tpu_parity import (host_beams,
                                                         host_corr_int32,
                                                         host_power)
 from caltech_bifrost_dsp_tpu.verification import golden as jgolden
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
@@ -23,6 +26,8 @@ from caltech_bifrost_dsp_tpu_torch.verification import golden
 torch.set_num_threads(1)
 
 CFG = C.TINY
+#: the port's config, from the JAX one field by field
+PCFG = TC.XEngineConfig(**dataclasses.asdict(CFG))
 
 
 def _golden_files(tmp_path, ntime, nchan=16, nstand=16, acc=240):
@@ -72,7 +77,7 @@ def test_synthetic_source_matches_dummy_source(tmp_path, mode):
     if mode == "testfile":
         testfile, _ = _golden_files(tmp_path, 240)
     want = jsource.DummySource(CFG, mode=mode, testfile=testfile, seed=9)
-    got = SyntheticSource(CFG, mode=mode, testfile=testfile, seed=9)
+    got = SyntheticSource(PCFG, mode=mode, testfile=testfile, seed=9)
     for (t0, a), (t1, b) in zip(want.stream(7, seq0=96),
                                 got.stream(7, seq0=96)):
         assert t0 == t1
@@ -134,7 +139,7 @@ def _truth(gulps, nchan_sum, pairs):
 def test_runner_products_are_exact():
     """Whole-window batching: fast dumps (subsel), slow dumps and beams
     against host truth over two slow accumulations."""
-    src = SyntheticSource(CFG, mode="random", seed=5)
+    src = SyntheticSource(PCFG, mode="random", seed=5)
     gulps = [g for _, g in src.stream(20)]
     rng = np.random.RandomState(6)
     gr = rng.randint(-8, 9, (CFG.nchan, CFG.nbeam, CFG.ninput))
@@ -142,7 +147,7 @@ def test_runner_products_are_exact():
     pairs = cs.baselines_to_inputs(
         cs.production_baselines(24, CFG.nstand)).astype(np.int32)
     runner = XEngineRunner(
-        CFG, device="cpu", subsel_pairs=pairs,
+        PCFG, device="cpu", subsel_pairs=pairs,
         gains=(torch.from_numpy(gr), torch.from_numpy(gi)))
     products = list(runner.run(enumerate_stream(gulps)))
     gpw = CFG.acc_len // CFG.ntime_gulp                 # 5 gulps per call
@@ -180,10 +185,10 @@ def test_runner_per_gulp_fallback_for_partial_accumulation():
     """A command that lengthens the fast window lands after the batch size
     was fixed, so the window runs as per-gulp calls with the right
     flags."""
-    src = SyntheticSource(CFG, mode="random", seed=7)
+    src = SyntheticSource(PCFG, mode="random", seed=7)
     gulps = [g for _, g in src.stream(12)]
     pairs = np.array([[0, 1], [3, 2]], np.int32)
-    runner = XEngineRunner(CFG, device="cpu", subsel_pairs=pairs)
+    runner = XEngineRunner(PCFG, device="cpu", subsel_pairs=pairs)
     it = runner.run(enumerate_stream(gulps))
     first = next(it)                         # gulps 0-4 in one call
     assert first["fast_seq0"] == 0
@@ -199,8 +204,8 @@ def test_runner_per_gulp_fallback_for_partial_accumulation():
 
 
 def test_runner_autostart_skips_until_armed():
-    src = SyntheticSource(CFG, mode="ramp")
-    runner = XEngineRunner(CFG, device="cpu",
+    src = SyntheticSource(PCFG, mode="ramp")
+    runner = XEngineRunner(PCFG, device="cpu",
                            autostartat=2 * CFG.acc_len)
     products = list(runner.run(src.stream(15)))
     assert len(products) == 1 and products[0]["seq0"] == 2 * CFG.acc_len

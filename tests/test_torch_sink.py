@@ -3,6 +3,7 @@ each sink is fed the same products as its JAX counterpart and the packets
 it passes to ``send`` must be byte-identical; the golden checkfile gate
 must agree; the UDP sender reaches a loopback receiver."""
 
+import dataclasses
 import time
 
 import numpy as np
@@ -11,12 +12,18 @@ import pytest
 from caltech_bifrost_dsp_tpu import config as C
 from caltech_bifrost_dsp_tpu.io import sink as jsink
 from caltech_bifrost_dsp_tpu.verification import golden as jgolden
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.io import packets as pk
 from caltech_bifrost_dsp_tpu_torch.io import sink
 
 CONFIGS = {"tiny": C.TINY.replace(pipeline_id=1, npipeline=4),
            "ragged": C.TINY.replace(nstand=36, nchan=8, pipeline_id=3,
                                     npipeline=4)}
+
+
+def port_cfg(jcfg):
+    """The port's config from the JAX one, field by field."""
+    return TC.XEngineConfig(**dataclasses.asdict(jcfg))
 
 
 def planes(cfg, seed):
@@ -38,9 +45,9 @@ def test_corr_full_packets_match_jax(name, cor_fmt):
     vr, vi, dense = planes(cfg, 1)
     got, got_dense, want = [], [], []
     args = (1_700_000_123, 7 * cfg.acc_len_slow, cfg.acc_len_slow)
-    n = sink.CorrFullOutput(cfg, send=got.append, use_cor_fmt=cor_fmt) \
+    n = sink.CorrFullOutput(port_cfg(cfg), send=got.append, use_cor_fmt=cor_fmt) \
         .send_matrix_planes(vr, vi, *args)
-    sink.CorrFullOutput(cfg, send=got_dense.append,
+    sink.CorrFullOutput(port_cfg(cfg), send=got_dense.append,
                         use_cor_fmt=cor_fmt).send_matrix(dense, *args)
     jsink.CorrFullOutput(cfg, send=want.append,
                          use_cor_fmt=cor_fmt).send_matrix(dense, *args)
@@ -56,7 +63,7 @@ def test_corr_full_packets_match_jax(name, cor_fmt):
 def test_corr_full_without_destination_sends_nothing():
     cfg = CONFIGS["tiny"]
     vr, vi, _ = planes(cfg, 2)
-    assert sink.CorrFullOutput(cfg).send_matrix_planes(vr, vi, 0, 0, 1) == 0
+    assert sink.CorrFullOutput(port_cfg(cfg)).send_matrix_planes(vr, vi, 0, 0, 1) == 0
 
 
 @pytest.mark.parametrize("nrep,t_index", [(1, 0), (1, 3), (2, 1)])
@@ -70,7 +77,7 @@ def test_checkfile_gate_matches_jax(tmp_path, nrep, t_index):
                             cfg.acc_len)
     jout = jsink.CorrFullOutput(cfg, checkfile=path,
                                 checkfile_acc_len=cfg.acc_len)
-    out = sink.CorrFullOutput(cfg, checkfile=path,
+    out = sink.CorrFullOutput(port_cfg(cfg), checkfile=path,
                               checkfile_acc_len=cfg.acc_len)
     want = sum(jout._load_checkfile_corr(t_index * nrep + i)
                for i in range(nrep))
@@ -99,7 +106,7 @@ def test_corr_part_packets_match_jax(name, nvis_per_packet):
     bl = rng.randint(0, cfg.nstand, (cfg.nvis_out, 2, 2)).astype(np.uint32)
     args = (sr, si, bl, 1_700_000_000, 5 * cfg.acc_len, cfg.acc_len)
     got, want = [], []
-    sink.CorrPartOutput(cfg, send=got.append,
+    sink.CorrPartOutput(port_cfg(cfg), send=got.append,
                         nvis_per_packet=nvis_per_packet).send_subsel(*args)
     jsink.CorrPartOutput(cfg, send=want.append,
                          nvis_per_packet=nvis_per_packet).send_subsel(*args)
@@ -116,7 +123,7 @@ def test_corr_part_cor_packets_match_jax(with_map):
     bl = rng.randint(0, cfg.nstand, (cfg.nvis_out, 2, 2)).astype(np.uint32)
     bl = bl if with_map else None
     got, want = [], []
-    sink.CorrPartOutput(cfg, send=got.append, use_cor_fmt=True) \
+    sink.CorrPartOutput(port_cfg(cfg), send=got.append, use_cor_fmt=True) \
         ._send_subsel_cor(sr, si, bl, 480, 240, 1_700_000_000)
     jsink.CorrPartOutput(cfg, send=want.append, use_cor_fmt=True) \
         ._send_subsel_cor(sr, si, bl, 480, 240, 1_700_000_000)
@@ -129,18 +136,18 @@ def test_beam_packets_match_jax():
     power = rng.randn(cfg.nbeam // 2, 4, cfg.nchan, 4).astype(np.float32)
     vlbi = rng.randn(cfg.ntime_gulp, cfg.nchan, 2, 2).astype(np.float32)
     got, want = {0: [], 1: []}, {0: [], 1: []}
-    n = sink.PBeamOutput(cfg, senders={b: got[b].append for b in got},
+    n = sink.PBeamOutput(port_cfg(cfg), senders={b: got[b].append for b in got},
                          pipeline_idx=2).send_powers(power, 960, 24)
     jsink.PBeamOutput(cfg, senders={b: want[b].append for b in want},
                       pipeline_idx=2).send_powers(power, 960, 24)
     assert got == want and n == 8
     got_v, want_v = [], []
-    assert sink.IBeamOutput(cfg, send=got_v.append, pipeline_idx=2) \
+    assert sink.IBeamOutput(port_cfg(cfg), send=got_v.append, pipeline_idx=2) \
         .send_voltages(vlbi, 960) == cfg.ntime_gulp
     jsink.IBeamOutput(cfg, send=want_v.append, pipeline_idx=2) \
         .send_voltages(vlbi, 960)
     assert got_v == want_v
-    assert sink.IBeamOutput(cfg).send_voltages(vlbi, 0) == 0
+    assert sink.IBeamOutput(port_cfg(cfg)).send_voltages(vlbi, 0) == 0
 
 
 def test_throttle_holds_the_rate():
@@ -172,8 +179,8 @@ def test_udp_sender_reaches_loopback_receiver():
 
 def test_max_mbps_sets_the_sink_throttle():
     cfg = CONFIGS["tiny"]
-    assert sink.CorrFullOutput(cfg, max_mbps=1500).throttle.max_bps == 1.5e9
-    assert sink.CorrFullOutput(cfg).throttle.max_bps is None
-    assert sink.CorrPartOutput(cfg, max_mbps=20).throttle.max_bps == 2e7
-    assert sink.IBeamOutput(cfg).throttle.max_bps == \
+    assert sink.CorrFullOutput(port_cfg(cfg), max_mbps=1500).throttle.max_bps == 1.5e9
+    assert sink.CorrFullOutput(port_cfg(cfg)).throttle.max_bps is None
+    assert sink.CorrPartOutput(port_cfg(cfg), max_mbps=20).throttle.max_bps == 2e7
+    assert sink.IBeamOutput(port_cfg(cfg)).throttle.max_bps == \
         jsink.IBeamOutput.MAX_BPS

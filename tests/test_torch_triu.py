@@ -11,6 +11,8 @@
   beam products within rtol 1e-4 (atol 1e-4 * max|ref|).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from caltech_bifrost_dsp_tpu.ops import corr_subsel as jcs
 from caltech_bifrost_dsp_tpu.ops.beamform import BeamGains as JGains
 from caltech_bifrost_dsp_tpu.ops.correlate import Vis as JVis
 from caltech_bifrost_dsp_tpu.ops.pallas.corr_triu import packed_corr_triu
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.ops.corr_triu import (TILE, corr_triu,
@@ -38,6 +41,11 @@ T, F = True, False
 CYCLE = [(T, F, F), (F, F, F), (F, T, T), (T, T, F), (T, F, F), (F, T, F),
          (T, T, T)]
 MALFORMED = [[800, 3], [3, 800], [-1, 4], [900, 900]]
+
+
+def port_cfg(jcfg):
+    """The port's config from the JAX one, field by field."""
+    return TC.XEngineConfig(**dataclasses.asdict(jcfg))
 
 
 def upper_tiles(ni):
@@ -111,24 +119,25 @@ def assert_state_equal(jvis, jcfg, pvis, cfg):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_triu_step_matches_jax_over_the_flag_cycle(name):
-    cfg = CONFIGS[name].replace(**TRIU)
+    jcfg = CONFIGS[name].replace(**TRIU)
+    cfg = port_cfg(jcfg)
     rng = np.random.RandomState(4)
     gr = rng.randn(cfg.nchan, cfg.nbeam, cfg.ninput).astype(np.float32)
     gi = rng.randn(cfg.nchan, cfg.nbeam, cfg.ninput).astype(np.float32)
     _, _, _, pairs = px.default_inputs(cfg)
     pairs = np.concatenate([pairs.numpy(), MALFORMED]).astype(np.int32)
-    jstate, pstate = jx.init_state(cfg), px.init_state(cfg)
+    jstate, pstate = jx.init_state(jcfg), px.init_state(cfg)
     jg = JGains(jnp.asarray(gr), jnp.asarray(gi))
     pg = px.gains_from_numpy(gr, gi)
     for flags in CYCLE:
         gulp = rng.randint(0, 256, (cfg.ntime_gulp, cfg.nchan, cfg.ninput)) \
             .astype(np.uint8)
         jstate, jo = jx.xengine_step_jit(jstate, jnp.asarray(gulp), jg,
-                                         jnp.asarray(pairs), *flags, cfg)
+                                         jnp.asarray(pairs), *flags, jcfg)
         pstate, po = px.xengine_step(pstate, torch.from_numpy(gulp), pg,
                                      torch.from_numpy(pairs), *flags, cfg)
-        assert_state_equal(jstate.vis_fast, cfg, pstate.vis_fast, cfg)
-        assert_state_equal(jstate.vis_slow, cfg, pstate.vis_slow, cfg)
+        assert_state_equal(jstate.vis_fast, jcfg, pstate.vis_fast, cfg)
+        assert_state_equal(jstate.vis_slow, jcfg, pstate.vis_slow, cfg)
         if flags[1]:
             np.testing.assert_array_equal(po.subsel.real.numpy(),
                                           np.asarray(jo.subsel.real))
@@ -141,7 +150,7 @@ def test_triu_step_matches_jax_over_the_flag_cycle(name):
 
 
 def test_triu_step_cti_matches_tci():
-    cfg = C.TINY.replace(nstand=36, nchan=8, **TRIU)
+    cfg = port_cfg(C.TINY.replace(nstand=36, nchan=8, **TRIU))
     state_a, packed, gains, pairs = px.default_inputs(cfg, seed=5)
     state_b = px.init_state(cfg)
     staged = torch.full((cfg.nchan, cfg.ntime_gulp, 128), 0x5A,

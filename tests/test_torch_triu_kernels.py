@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from caltech_bifrost_dsp_tpu import config as C
+from caltech_bifrost_dsp_tpu_torch import config as C
 from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 from caltech_bifrost_dsp_tpu_torch.ops.corr_triu import (TILE, corr_triu,
                                                          corr_triu_ref)

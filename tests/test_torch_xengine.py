@@ -4,6 +4,8 @@ cycle: exact int32 for the fast and slow accumulators (through
 beam power and VLBI.  JAX runs its committed TPU engines (Pallas in
 interpret mode on the CPU) and its XLA engines."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from caltech_bifrost_dsp_tpu import config as C
 from caltech_bifrost_dsp_tpu.models import xengine as jx
 from caltech_bifrost_dsp_tpu.ops.beamform import BeamGains as JGains
+from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 
 torch.set_num_threads(1)
@@ -28,6 +31,11 @@ T, F = True, False
 CYCLE = [(T, F, F), (F, F, F), (F, T, T), (T, T, F), (T, F, F), (F, T, F),
          (T, T, T)]
 MALFORMED = [[800, 3], [3, 800], [-1, 4], [900, 900]]
+
+
+def port_cfg(jcfg):
+    """The port's config from the JAX one, field by field."""
+    return TC.XEngineConfig(**dataclasses.asdict(jcfg))
 
 
 def close(got, want):
@@ -79,8 +87,8 @@ def run_both(cfg, jcfg, jstate, pstate, gr, gi, pairs, gulps, flags_seq):
 @pytest.mark.parametrize("engines", sorted(ENGINES))
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_full_cycle_matches_jax(name, engines):
-    cfg = CONFIGS[name]
-    jcfg = cfg.replace(**ENGINES[engines])
+    jcfg = CONFIGS[name].replace(**ENGINES[engines])
+    cfg = port_cfg(jcfg)
     gr, gi, pairs, gulps = make_inputs(cfg, 1)
     run_both(cfg, jcfg, jx.init_state(jcfg), px.init_state(cfg), gr, gi,
              pairs, gulps, CYCLE)
@@ -89,8 +97,8 @@ def test_full_cycle_matches_jax(name, engines):
 def test_state_from_numpy_continues_jax_state():
     """Run JAX (padded block-engine state) for one fast window, carry its
     state into the port, and continue both."""
-    cfg = CONFIGS["ragged"]
-    jcfg = cfg.replace(**C.TPU_ENGINES)
+    jcfg = CONFIGS["ragged"].replace(**C.TPU_ENGINES)
+    cfg = port_cfg(jcfg)
     gr, gi, pairs, gulps = make_inputs(cfg, 2)
     jstate, _ = run_both(cfg, jcfg, jx.init_state(jcfg), px.init_state(cfg),
                          gr, gi, pairs, gulps[:3], CYCLE[:3])
@@ -101,8 +109,8 @@ def test_state_from_numpy_continues_jax_state():
 
 
 def test_cti_layout_matches_jax():
-    cfg = CONFIGS["ragged"]
-    jcfg = cfg.replace(**C.TPU_ENGINES)
+    jcfg = CONFIGS["ragged"].replace(**C.TPU_ENGINES)
+    cfg = port_cfg(jcfg)
     gr, gi, pairs, gulps = make_inputs(cfg, 3)
     staged = np.full((cfg.nchan, cfg.ntime_gulp, 256), 0xC3, np.uint8)
     staged[:, :, :cfg.ninput] = gulps[0].transpose(1, 0, 2)
@@ -122,7 +130,7 @@ def test_cti_layout_matches_jax():
 
 
 def test_want_flags_skip_products():
-    cfg = CONFIGS["tiny"]
+    cfg = port_cfg(CONFIGS["tiny"])
     state, packed, gains, pairs = px.default_inputs(cfg)
     _, out = px.xengine_step(state, packed, gains, pairs, T, T, T, cfg,
                              want_power=False, want_vlbi=False,
@@ -134,9 +142,9 @@ def test_want_flags_skip_products():
 
 
 def test_default_inputs_match_jax():
-    cfg = CONFIGS["cpu_ref"]
-    _, jpacked, jgains, jpairs = jx.default_inputs(cfg, seed=4)
-    _, packed, gains, pairs = px.default_inputs(cfg, seed=4)
+    jcfg = CONFIGS["cpu_ref"]
+    _, jpacked, jgains, jpairs = jx.default_inputs(jcfg, seed=4)
+    _, packed, gains, pairs = px.default_inputs(port_cfg(jcfg), seed=4)
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
     np.testing.assert_array_equal(pairs.numpy(), np.asarray(jpairs))
     np.testing.assert_array_equal(gains.real.numpy(), np.asarray(jgains.real))
