@@ -10,14 +10,17 @@ corr_acc_block.py:303-306) to the carried state, IN PLACE:
          = copy of fast    if slow_first
          = slow + fast     otherwise
 
-The CUDA kernel (``kernels/csrc/corr_acc.cu``) computes only the upper
-64 x 64 input-tile pairs, so entries ``j >= i`` of the state are valid and
-consumers go through :func:`..models.xengine.dense_vis` or the subselection
-gather.  The plain version :func:`corr_acc_ref` computes the dense matrix.
+The CUDA kernel (``kernels/csrc/corr_acc.cu``, int8 tensor-core MMA)
+computes only the upper 128 x 128 input-tile pairs, so entries ``j >= i`` of
+the state are valid and consumers go through
+:func:`..models.xengine.dense_vis` or the subselection gather.  The plain
+version :func:`corr_acc_ref` computes the dense matrix.
 
 ``unpack_cache=True`` is the port of ``corr_blk.py::_corr_blk_acc_cached``:
 a prepass kernel unpacks the block once into sign-extended byte planes and
 the contraction reads those; the state comes out bit-identical.
+``unpack_cache=None`` (the default) takes the schedule measured faster on
+the H100, see :data:`UNPACK_CACHE_DEFAULT`.
 """
 
 from __future__ import annotations
@@ -46,29 +49,60 @@ def corr_acc_ref(xc: torch.Tensor, fast: Vis, slow: Vis, fast_first: bool,
                 acc.add_(f)
 
 
-#: the cached variant's plane geometry (``csrc/corr_acc.cu``): inputs
-#: padded to whole 64-tiles, time to whole 32-sample chunks of 8 words
-_CACHE_TILE, _CACHE_TCHUNK = 64, 32
+#: the prepass planes' geometry (``csrc/corr_acc.cu``): inputs padded to
+#: whole 128-tiles, time to whole 64-sample chunks of 16 words
+_CACHE_TILE, _CACHE_TCHUNK = 128, 64
 
 
 def cache_shape(nchan: int, ntime: int, ninput: int) -> tuple:
-    """Shape of the int32 scratch of ``unpack_cache=True``: [nchan, 4
-    planes (re, im, im - re, re + im), words of 4 samples, inputs]."""
+    """Shape of the int32 scratch of the unpack-once kernels: [nchan, 3
+    planes (re, im, -re), words of 4 samples, inputs]."""
     nq = -(-ntime // _CACHE_TCHUNK) * (_CACHE_TCHUNK // 4)
-    return (nchan, 4, nq, -(-ninput // _CACHE_TILE) * _CACHE_TILE)
+    return (nchan, 3, nq, -(-ninput // _CACHE_TILE) * _CACHE_TILE)
+
+
+def unpack_planes_ref(xc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the prepass on a chan-major view [nchan, ntime,
+    ninput]: the int32 scratch of :func:`cache_shape`, byte u of word q of
+    an input its sample 4 q + u sign-extended (planes re, im, -re), zero
+    past ``ntime`` and ``ninput``."""
+    nchan, ntime, ninput = xc.shape
+    shape = cache_shape(nchan, ntime, ninput)
+    x = xc.to(torch.int16)
+    re = ((x >> 4) ^ 8) - 8
+    im = ((x & 15) ^ 8) - 8
+    full = torch.zeros((nchan, 3, 4 * shape[2], shape[3]), dtype=torch.int16)
+    for p, plane in enumerate((re, im, -re)):
+        full[:, p, :ntime, :ninput] = plane
+    b = (full.reshape(nchan, 3, shape[2], 4, shape[3]) & 0xFF).to(torch.int64)
+    word = b[:, :, :, 0] | b[:, :, :, 1] << 8 | b[:, :, :, 2] << 16 \
+        | b[:, :, :, 3] << 24
+    return (((word + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+#: what ``unpack_cache=None`` resolves to (the JAX function resolves it
+#: from its TPU measurement, ops/pallas/corr_blk.py:173-184; this is the
+#: H100's): at 704 inputs x 192 channels x 2400 spectra the unpack-once
+#: pair takes 3.94 ms a call and the kernel that unpacks its own tiles
+#: 10.75 ms (NVIDIA H100 80GB HBM3, 700.00 W; ``chip_smoke.py``, CUDA events
+#: over 5 calls of each in one process)
+UNPACK_CACHE_DEFAULT = True
 
 
 def corr_acc(packed: torch.Tensor, fast: Vis, slow: Vis, fast_first: bool,
              fast_last: bool, slow_first: bool, layout: str = "tci",
-             unpack_cache: bool = False) -> None:
+             unpack_cache: bool | None = None) -> None:
     """Correlate ``packed`` (uint8, ``layout`` "tci" [ntime, nchan, ninput]
     or "cti" [nchan, ntime, ninput|padded]) into the state planes in place.
 
     CPU tensors take :func:`corr_acc_ref`; CUDA tensors launch the kernel:
     with ``unpack_cache`` the unpack-once pair (prepass + contraction from
     the cached planes, a per-call scratch in device memory), else the
-    kernel that unpacks its tiles itself.  Same state either way.
+    kernel that unpacks its tiles itself; ``None`` takes
+    :data:`UNPACK_CACHE_DEFAULT`.  Same state either way.
     """
+    if unpack_cache is None:
+        unpack_cache = UNPACK_CACHE_DEFAULT
     ninput = fast.ninput
     xc = chan_major(packed, layout, ninput)
     planes = (*fast, *slow)

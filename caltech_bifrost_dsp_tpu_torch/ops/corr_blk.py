@@ -1,11 +1,12 @@
-"""Gulp correlator over the upper 64-input tile pairs (the sharded
+"""Gulp correlator over the upper 128-input tile pairs (the sharded
 programs' ``pallas_blk`` engine).
 
 Port of ``caltech_bifrost_dsp_tpu/ops/pallas/corr_blk.py::packed_corr_blk``:
 one call correlates a packed block into a fresh pair of int32 planes and
 reads no state.  The CUDA kernel (``cbd_corr_blk`` in
-``kernels/csrc/corr_acc.cu``) is the tile contraction of the fused
-correlator without its epilogue: it writes only the tile pairs with
+``kernels/csrc/corr_acc.cu``) is the tensor-core tile contraction of the
+fused correlator without its epilogue, fed from the same unpack-once planes
+(a per-call scratch in device memory): it writes only the tile pairs with
 tile(j) >= tile(i), so entries ``j >= i`` are valid and the tiles below the
 diagonal stay zero; consumers mirror at dump time or gather from the upper
 triangle.  It masks ragged edges itself, so the TPU kernel's 256-padded
@@ -19,11 +20,12 @@ from __future__ import annotations
 
 import torch
 
+from .corr_acc import cache_shape
 from .correlate import Vis, chan_major, correlate_chan_major, zero_vis
 from .kernels import _build
 
 #: inputs per tile side of the kernel
-TILE = 64
+TILE = 128
 
 
 def corr_blk_ref(xc: torch.Tensor) -> Vis:
@@ -49,9 +51,11 @@ def corr_blk(packed: torch.Tensor, layout: str = "tci",
     if packed.dtype != torch.uint8 or xc.stride(2) != 1:
         raise ValueError("packed must be uint8 with a contiguous input axis")
     out = zero_vis(nchan, ni, dev)
+    scratch = torch.empty(cache_shape(nchan, ntime, ni), dtype=torch.int32,
+                          device=dev)
     _build.launch("cbd_corr_blk", dev, xc.data_ptr(), xc.stride(0),
-                  xc.stride(1), nchan, ntime, ni, out.real.data_ptr(),
-                  out.imag.data_ptr())
+                  xc.stride(1), nchan, ntime, ni, scratch.data_ptr(),
+                  scratch.numel(), out.real.data_ptr(), out.imag.data_ptr())
     corr_blk.launches += 1
     return out
 

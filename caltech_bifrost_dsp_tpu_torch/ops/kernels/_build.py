@@ -34,7 +34,7 @@ SIGNATURES = {
     "cbd_corr_acc": (_P, _L, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "cbd_corr_acc_cached": (_P, _L, _L, _I, _I, _I, _P, _L, _P, _P, _P, _P,
                             _I, _I, _I, _P),
-    "cbd_corr_blk": (_P, _L, _L, _I, _I, _I, _P, _P, _P),
+    "cbd_corr_blk": (_P, _L, _L, _I, _I, _I, _P, _L, _P, _P, _P),
     "cbd_corr_rows": (_P, _L, _L, _I, _I, _I, _P, _P, _P),
     "cbd_corr_triu": (_P, _L, _L, _I, _I, _I, _P, _P, _P),
     "cbd_beamform_products": (_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P,

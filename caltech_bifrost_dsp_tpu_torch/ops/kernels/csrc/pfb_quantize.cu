@@ -17,28 +17,46 @@
 // values give the same bytes.  Output is input-major [ninput, nspec,
 // nchan], the TPU function's layout.
 //
-// Precision.  The DFT runs in float32 FMA (never TF32, which would flip
-// many rounding decisions).  Partial sums are float32 over 32-term slices
-// of the contraction and are added into a float64 accumulator after each
-// slice, and v * scale is formed in float64: that keeps the error against
-// the float64 reference near 3e-7 of a code, against ~1e-6 for one long
-// float32 sum, so fewer values land on the other side of a rounding
-// threshold.  fast=1 (the TPU kernel's bf16 mode, pfb_fused.py:95-102)
-// rounds the DFT operands to bf16 with __float2bfloat16_rn where the TPU
-// kernel casts: the FIR frames, the tables (rounded by the wrapper) and,
-// in the factored transform, the twiddled intermediates (:269-276); the
-// products are then exact in float32.
+// Precision.  Direct mode contracts on the FP64 tensor cores: the float32
+// FIR rows and the float32 table convert to double exactly, every product
+// is exact and the sums are double, as in the float64 reference, so the
+// only difference from it is the fold below (a table entry may differ from
+// its mirror image by one float32 ulp) and the order of the sums: ~5e-8 of
+// a code, and few values land on the other side of a rounding threshold.
+// The factored mode runs in float32 FMA (never TF32, which would flip many
+// rounding decisions) with float32 partial sums over 32-term slices added
+// into a float64 accumulator.  v * scale is formed in float64.  fast=1
+// (the TPU kernel's bf16 mode, pfb_fused.py:95-102) rounds the DFT operands
+// to bf16 with __float2bfloat16_rn where the TPU kernel casts: the FIR
+// frames, the tables (rounded by the wrapper) and, in the factored
+// transform, the twiddled intermediates (:269-276); direct mode then runs
+// the same FP64 contraction on the rounded operands, which is what the
+// reference of that mode computes.
 //
-// Direct mode (L < 2048; production L = 384).  A block owns 32 inputs x 2
-// spectra = 64 rows.  Its FIR rows go to shared memory (transposed, the
-// contraction index outer) and never to device memory; 32 inputs of one
-// ADC sample are one 32-byte sector of int8, so the FIR reads coalesce.
-// The [L, 2 * nchan] table (columns interleaved re, im per channel,
-// 576 KB at nchan = 192) stays resident in L2 and is streamed through
-// shared memory in 32 x 128 tiles.  Each thread holds an 8-row x 4-column
-// register tile.  Bound: fp32 FMA issue, 5.0e11 flop per 2400-spectra
-// window at 704 inputs (7.5 ms at the card's fp32 peak); the FIR (4 FMA
-// per sample) and the 650 MB int8 ADC read are a few percent of that.
+// Direct mode (L < 2048; production L = 384), mma.sync.m16n8k8.f64.  The
+// real-input DFT is folded: with e[n] = fir[n] + fir[L - n] and o[n] =
+// fir[n] - fir[L - n] for 0 < n < nchan (e[0] = fir[0], e[nchan] =
+// fir[nchan]), Re X[c] = sum_{n <= nchan} e[n] cos(2 pi n c / L) and
+// Im X[c] = -sum_{0 < n < nchan} o[n] sin(2 pi n c / L): two products of
+// depth nchan + 1 instead of one of depth 2 nchan, half the operations
+// (2.5e11 flop per 2400-spectra window at 704 inputs: 3.7 ms at the 67
+// TFLOP/s FP64 tensor peak, which m16n8k8 reaches to 95% on this card and
+// m8n8k4 to half).  A block owns 16 inputs x 3 spectra = 48 rows (16 x 1
+// where 48 rows of a long L do not fit).  Their e and o go to shared memory
+// as doubles, the contraction index outer with a row pitch of 52 (20)
+// doubles so that the 16 lanes of a half-warp fragment load fall on
+// distinct 8-byte banks, and never to device memory.  The table [pass]
+// [k / 8][cos, -sin][8][192] (float32, 307 KB at nchan = 192, resident in
+// L2) is streamed with cp.async through a ring of four 12.8 KB slabs, row
+// pitch 200 floats (banks 8 t + g); its fragments convert to double at
+// load and are reused over the block's three row tiles.  Each of 8 warps owns all rows x
+// 24 channels (3 x 3 MMA tiles for Re and for Im, 144 accumulator
+// registers), so Re and Im of a channel meet in one lane for the nibble
+// pack.  Bound: the FP64 tensor rate.  The FIR comes on top: one block
+// fills an SM, so its FIR phase and its MMA loop do not overlap; int8
+// frames are first copied into the idle slab ring in one cp.async wave,
+// because a thread's own byte loads would wait on memory latency for
+// longer than the MMAs take.
 //
 // Factored mode (L >= 2048 with (L1, L2) from ops/pfb.py::_dft_factors;
 // F-engine L = 8192 -> (128, 64)).  One row's frame is strided by ninput
@@ -65,13 +83,15 @@ namespace {
 constexpr int THREADS = 256;
 
 // direct mode tiling
-constexpr int D_TI = 32;              // inputs per block
-constexpr int D_TS = 2;               // spectra per block
-constexpr int D_BM = D_TI * D_TS;     // rows per block
-constexpr int D_BK = 32;              // contraction slice
-constexpr int D_BN = 128;             // output-column tile
-constexpr int D_TM = 8;               // rows per thread
-constexpr int D_TN = 4;               // columns per thread (2 channels)
+constexpr int D_TI = 16;              // inputs per block: one m16 row tile
+constexpr int D_MT = 3;               // spectra (row tiles) per block
+constexpr int D_NT = 3;               // n8 tiles per warp and table
+constexpr int D_CPASS = (THREADS / 32) * D_NT * 8;  // channels per pass
+constexpr int D_KS = 8;               // table rows per slab: one MMA k step
+constexpr int D_BP = D_CPASS + 8;     // slab row pitch, floats
+constexpr int D_SLAB = 2 * D_KS * D_BP;             // floats per slab
+constexpr int D_NSTAGE = 4;           // slabs in flight (cp.async ring)
+constexpr int MAX_SHARED = 232448;    // bytes one block may use
 
 // factored mode: FIR tile of the first kernel
 constexpr int F_TI = 32;
@@ -125,116 +145,304 @@ __device__ __forceinline__ float fir_sample(const T* __restrict__ adc,
     return FAST ? bf16r(v) : v;
 }
 
-template <typename T, bool FAST>
-__global__ void __launch_bounds__(THREADS, 2)
+// fir_sample of samples n and m for the MT consecutive spectra of a block,
+// input column i of ``frames`` (the block's first frame; ``nframe`` frames
+// exist, later ones read as zero).  The MT + ntap - 1 frames are loaded
+// once for both samples, all loads started before the first sum and no
+// branch taken, so that the 2 MT sums are independent chains; each runs
+// over k ascending in float64 as in fir_sample, so the values are the same
+// bit for bit.
+constexpr int D_MAXTAP = 8;
+
+template <typename T, bool FAST, int MT>
+__device__ __forceinline__ void fir_rows(const T* __restrict__ frames,
+                                         long long st_t, long long st_i,
+                                         const float* __restrict__ w,
+                                         int ntap, int L, int nframe, int n,
+                                         int m, int i, float (&a)[MT],
+                                         float (&b)[MT])
+{
+    if (ntap > D_MAXTAP) {
+#pragma unroll
+        for (int si = 0; si < MT; ++si) {
+            const bool row = si + ntap <= nframe;
+            const long long t0 = static_cast<long long>(si) * L;
+            a[si] = row ? fir_sample<T, FAST>(frames, st_t, st_i, w, ntap, L,
+                                              t0, n, i) : 0.f;
+            b[si] = row ? fir_sample<T, FAST>(frames, st_t, st_i, w, ntap, L,
+                                              t0, m, i) : 0.f;
+        }
+        return;
+    }
+    double xn[MT + D_MAXTAP - 1], xm[MT + D_MAXTAP - 1];
+    double wn[D_MAXTAP], wm[D_MAXTAP];
+    const T* col = frames + static_cast<long long>(i) * st_i;
+#pragma unroll
+    for (int f = 0; f < MT + D_MAXTAP - 1; ++f) {
+        const bool have = f < MT + ntap - 1 && f < nframe;
+        const long long t = static_cast<long long>(have ? f : 0) * L;
+        const T vn = col[(t + n) * st_t];
+        const T vm = col[(t + m) * st_t];
+        xn[f] = have ? static_cast<double>(vn) : 0.0;
+        xm[f] = have ? static_cast<double>(vm) : 0.0;
+    }
+#pragma unroll
+    for (int k = 0; k < D_MAXTAP; ++k) {
+        const int kk = k < ntap ? k : 0;
+        wn[k] = static_cast<double>(w[kk * L + n]);
+        wm[k] = static_cast<double>(w[kk * L + m]);
+    }
+#pragma unroll
+    for (int si = 0; si < MT; ++si) {
+        double sn = 0.0, sm = 0.0;
+#pragma unroll
+        for (int k = 0; k < D_MAXTAP; ++k) {
+            if (k < ntap) {
+                sn = madd(xn[si + k], wn[k], sn);
+                sm = madd(xm[si + k], wm[k], sm);
+            }
+        }
+        const float rn = static_cast<float>(sn), rm = static_cast<float>(sm);
+        a[si] = FAST ? bf16r(rn) : rn;
+        b[si] = FAST ? bf16r(rm) : rm;
+    }
+}
+
+// The FP64 tensor-core instruction and the asynchronous copies sit behind
+// these functions; a host build (CBD_HOST_EMULATION, with a cuda_runtime.h
+// that supplies them lane by lane) compiles the rest of this file as C++.
+#ifdef CBD_HOST_EMULATION
+using cbd_emu::cp_async16;
+using cbd_emu::cp_async_commit;
+using cbd_emu::cp_async_wait_but;
+using cbd_emu::mma_m16n8k8_f64;
+#else
+// c[16 x 8] += a[16 x 8] b[8 x 8]; lane (g = lane / 4, t = lane % 4):
+// a = rows g, g + 8 x k t, then k t + 4; b = k t, t + 4 x column g;
+// c = row g x columns 2t, 2t + 1, then row g + 8
+__device__ __forceinline__ void mma_m16n8k8_f64(double (&c)[4],
+                                                const double (&a)[4],
+                                                const double (&b)[2])
+{
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(void* shared, const void* global)
+{
+    const unsigned s = static_cast<unsigned>(
+        __cvta_generic_to_shared(shared));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(global) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_but()
+{
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+#endif
+
+// Bytes of dynamic shared memory of the direct kernel with MT row tiles:
+// e and o [kpad][16 MT + 4] doubles, and the ring of table slabs.
+__host__ __device__ constexpr size_t direct_smem(int kpad, int mt)
+{
+    return static_cast<size_t>(2) * kpad * (16 * mt + 4) * sizeof(double)
+        + D_NSTAGE * D_SLAB * sizeof(float);
+}
+
+// MT row tiles: rows r = si * 16 + ii for spectrum s0 + si, input i0 + ii.
+template <typename T, bool FAST, int MT>
+__global__ void __launch_bounds__(THREADS, 1)
 pfb_direct_kernel(const T* __restrict__ adc, long long st_t, long long st_i,
                   int ninput, int nspec, int nchan, int ntap,
                   const float* __restrict__ window,
                   const float* __restrict__ table, int kpad, int npad,
-                  const float* __restrict__ scale, uint8_t* __restrict__ out)
+                  const float* __restrict__ scale, int tile_adc,
+                  uint8_t* __restrict__ out)
 {
     extern __shared__ float4 smem4[];
-    float* fir = reinterpret_cast<float*>(smem4);     // [kpad][D_BM]
-    float* btile = fir + kpad * D_BM;                 // [D_BK][D_BN]
+    constexpr int AP = 16 * MT + 4;       // pitch: banks (4 t + g) mod 16
+    double* es = reinterpret_cast<double*>(smem4);    // e[kpad][AP]
+    double* os = es + kpad * AP;                      // o[kpad][AP]
+    float* slabs = reinterpret_cast<float*>(os + kpad * AP);
     const int L = 2 * nchan;
     const int tid = threadIdx.x;
-    const int s0 = blockIdx.x * D_TS;
-    const int i0 = blockIdx.y * D_TI;
+    // input tile fastest: the blocks that run together read the same ADC
+    // rows (704 contiguous bytes at the production width, 16 a block)
+    const int ntile_i = (ninput + D_TI - 1) / D_TI;
+    const int s0 = static_cast<int>(blockIdx.x / ntile_i) * MT;
+    const int i0 = static_cast<int>(blockIdx.x % ntile_i) * D_TI;
 
-    // FIR of row r = si * D_TI + ii into fir[n][r]; zero past the edges
-    {
-        const int ii = tid % D_TI;
-        const int i = i0 + ii;
-        for (int n = tid / D_TI; n < kpad; n += THREADS / D_TI) {
-            for (int si = 0; si < D_TS; ++si) {
-                const int s = s0 + si;
-                float v = 0.f;
-                if (i < ninput && s < nspec && n < L) {
-                    v = fir_sample<T, FAST>(adc, st_t, st_i, window, ntap, L,
-                                            static_cast<long long>(s) * L, n,
-                                            i);
-                }
-                fir[n * D_BM + si * D_TI + ii] = v;
+    // The block's frames.  Read straight from device memory, a thread has
+    // a dozen byte loads in flight and the FIR waits on memory latency for
+    // longer than the MMAs take; so where the ADC is int8 with 16-byte rows
+    // per block (``tile_adc``), all frames are first copied, 16 inputs x
+    // one sample to a cp.async, into the slab ring, which is idle until
+    // the MMA loop.
+    const int nframe = min(MT + ntap - 1, nspec + ntap - 1 - s0);
+    const T* frames = adc + static_cast<long long>(s0) * L * st_t;
+    bool tiled = false;
+    if constexpr (sizeof(T) == 1) {
+        tiled = tile_adc && static_cast<size_t>(MT + ntap - 1) * L * D_TI
+                                <= D_NSTAGE * D_SLAB * sizeof(float);
+        if (tiled) {
+            int8_t* tile = reinterpret_cast<int8_t*>(slabs);
+            for (int item = tid; item < nframe * L; item += THREADS) {
+                cp_async16(tile + item * D_TI,
+                           frames + static_cast<long long>(item) * st_t + i0);
             }
+            cp_async_commit();
+            cp_async_wait_but<0>();
+            __syncthreads();
         }
     }
 
-    const int tx = tid % (D_BN / D_TN);   // column group
-    const int ty = tid / (D_BN / D_TN);   // row group
-    const float4* fir4 = reinterpret_cast<const float4*>(fir);
-    float4* b4 = reinterpret_cast<float4*>(btile);
-    for (int c0 = 0; c0 < npad; c0 += D_BN) {
-        double acc64[D_TM][D_TN];
+    // folded FIR rows for n <= nchan; zero past the edges (frames past the
+    // last read as zero, so spectra past nspec come out zero) and in the
+    // pad rows of e and o.  Inputs past ninput read the last input's
+    // column and are zeroed.
+    {
+        const int ii = tid % D_TI;
+        const bool live = i0 + ii < ninput;
+        const T* src = tiled ? reinterpret_cast<const T*>(slabs) : frames;
+        const long long src_t = tiled ? D_TI : st_t;
+        const long long src_i = tiled ? 1 : st_i;
+        const int col = tiled ? ii : min(i0 + ii, ninput - 1);
+#pragma unroll 2
+        for (int n = tid / D_TI; n <= nchan; n += THREADS / D_TI) {
+            const bool pair = n > 0 && n < nchan;
+            float a[MT], b[MT];
+            fir_rows<T, FAST, MT>(src, src_t, src_i, window, ntap, L, nframe,
+                                  n, pair ? L - n : n, col, a, b);
 #pragma unroll
-        for (int m = 0; m < D_TM; ++m) {
-#pragma unroll
-            for (int n = 0; n < D_TN; ++n) {
-                acc64[m][n] = 0.0;
+            for (int si = 0; si < MT; ++si) {
+                const bool row = live && si + ntap <= nframe;
+                const double x = row ? a[si] : 0.f;
+                const double y = row && pair ? b[si] : 0.f;
+                es[n * AP + si * D_TI + ii] = x + y;
+                os[n * AP + si * D_TI + ii] = pair ? x - y : 0.0;
             }
         }
-        for (int k0 = 0; k0 < kpad; k0 += D_BK) {
-            __syncthreads();   // FIR written; previous table tile consumed
-            for (int q = tid; q < D_BK * D_BN / 4; q += THREADS) {
-                const int kk = q / (D_BN / 4);
-                const int cc = q % (D_BN / 4);
-                b4[q] = reinterpret_cast<const float4*>(
-                    table + static_cast<long long>(k0 + kk) * npad + c0)[cc];
+        for (int n = nchan + 1 + tid / D_TI; n < kpad;
+             n += THREADS / D_TI) {
+#pragma unroll
+            for (int si = 0; si < MT; ++si) {
+                es[n * AP + si * D_TI + ii] = 0.0;
+                os[n * AP + si * D_TI + ii] = 0.0;
             }
-            __syncthreads();
-            float acc[D_TM][D_TN];
+        }
+    }
+    __syncthreads();    // the tile is consumed before the ring takes slabs
+
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const int t = tid & 3;
+    const int nslab = kpad / D_KS;
+    // one slab = [cos, -sin][D_KS] rows of D_CPASS floats, contiguous;
+    // a copy group is committed for every slab index, empty past the last,
+    // so that the count of groups in flight tells which slab has landed
+    auto stage = [&](int pass, int slab) {
+        constexpr int NV = D_CPASS / 4;
+        if (slab < nslab) {
+            float* buf = slabs + (slab % D_NSTAGE) * D_SLAB;
+            const float* src = table
+                + static_cast<long long>(pass * nslab + slab)
+                  * (2 * D_KS * D_CPASS);
+            for (int item = tid; item < 2 * D_KS * NV; item += THREADS) {
+                const int row = item / NV;
+                const int v = item - row * NV;
+                cp_async16(buf + row * D_BP + 4 * v,
+                           src + row * D_CPASS + 4 * v);
+            }
+        }
+        cp_async_commit();
+    };
+
+    for (int pass = 0; pass < npad / D_CPASS; ++pass) {
+        double re[MT][D_NT][4], im[MT][D_NT][4];
 #pragma unroll
-            for (int m = 0; m < D_TM; ++m) {
+        for (int m = 0; m < MT; ++m) {
 #pragma unroll
-                for (int n = 0; n < D_TN; ++n) {
-                    acc[m][n] = 0.f;
+            for (int n = 0; n < D_NT; ++n) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    re[m][n][q] = 0.0;
+                    im[m][n][q] = 0.0;
                 }
             }
-#pragma unroll 4
-            for (int kk = 0; kk < D_BK; ++kk) {
-                const int ai = ((k0 + kk) * D_BM + ty * D_TM) / 4;
-                const float4 a0 = fir4[ai];
-                const float4 a1 = fir4[ai + 1];
-                const float4 b = b4[kk * (D_BN / 4) + tx];
-                const float a[D_TM] = {a0.x, a0.y, a0.z, a0.w,
-                                       a1.x, a1.y, a1.z, a1.w};
-                const float bb[D_TN] = {b.x, b.y, b.z, b.w};
+        }
 #pragma unroll
-                for (int m = 0; m < D_TM; ++m) {
+        for (int slab = 0; slab < D_NSTAGE - 1; ++slab) {
+            stage(pass, slab);
+        }
+        for (int slab = 0; slab < nslab; ++slab) {
+            const float* cur = slabs + (slab % D_NSTAGE) * D_SLAB;
+            cp_async_wait_but<D_NSTAGE - 2>();
+            // slab ``slab`` (and, the first time, e and o) is complete for
+            // every thread, and every thread is done with slab - 1, whose
+            // buffer the next copy overwrites
+            __syncthreads();
+            stage(pass, slab + D_NSTAGE - 1);
+            double bc[D_NT][2], bs[D_NT][2];
 #pragma unroll
-                    for (int n = 0; n < D_TN; ++n) {
-                        acc[m][n] = fmaf(a[m], bb[n], acc[m][n]);
+            for (int n = 0; n < D_NT; ++n) {
+                const int col = (warp * D_NT + n) * 8 + g;
+                bc[n][0] = cur[t * D_BP + col];
+                bc[n][1] = cur[(t + 4) * D_BP + col];
+                bs[n][0] = cur[(D_KS + t) * D_BP + col];
+                bs[n][1] = cur[(D_KS + t + 4) * D_BP + col];
+            }
+            const double* e0 = es + (slab * D_KS + t) * AP + g;
+            const double* o0 = os + (slab * D_KS + t) * AP + g;
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+                const double ae[4] = {e0[m * 16], e0[m * 16 + 8],
+                                      e0[4 * AP + m * 16],
+                                      e0[4 * AP + m * 16 + 8]};
+                const double ao[4] = {o0[m * 16], o0[m * 16 + 8],
+                                      o0[4 * AP + m * 16],
+                                      o0[4 * AP + m * 16 + 8]};
+#pragma unroll
+                for (int n = 0; n < D_NT; ++n) {
+                    mma_m16n8k8_f64(re[m][n], ae, bc[n]);
+                    mma_m16n8k8_f64(im[m][n], ao, bs[n]);
+                }
+            }
+        }
+        // requantize and pack: Re and Im of a channel sit in the same lane
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+            const int s = s0 + m;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int i = i0 + g + (q >> 1) * 8;
+                if (i >= ninput || s >= nspec) {
+                    continue;
+                }
+                uint8_t* row = out + (static_cast<long long>(i) * nspec + s)
+                                     * nchan;
+#pragma unroll
+                for (int n = 0; n < D_NT; ++n) {
+                    const int c = pass * D_CPASS + (warp * D_NT + n) * 8
+                                  + 2 * t + (q & 1);
+                    if (c < nchan) {
+                        const double sc = scale[c];
+                        row[c] = static_cast<uint8_t>(pack_nibbles(
+                            re[m][n][q] * sc, im[m][n][q] * sc));
                     }
                 }
             }
-#pragma unroll
-            for (int m = 0; m < D_TM; ++m) {
-#pragma unroll
-                for (int n = 0; n < D_TN; ++n) {
-                    acc64[m][n] += static_cast<double>(acc[m][n]);
-                }
-            }
         }
-        // requantize and pack: columns 2c, 2c + 1 are Re, Im of channel c
-#pragma unroll
-        for (int m = 0; m < D_TM; ++m) {
-            const int r = ty * D_TM + m;
-            const int i = i0 + r % D_TI;
-            const int s = s0 + r / D_TI;
-            if (i >= ninput || s >= nspec) {
-                continue;
-            }
-            uint8_t* row = out + (static_cast<long long>(i) * nspec + s)
-                                 * nchan;
-#pragma unroll
-            for (int p = 0; p < D_TN / 2; ++p) {
-                const int c = (c0 + tx * D_TN) / 2 + p;
-                if (c < nchan) {
-                    const double sc = scale[c];
-                    row[c] = static_cast<uint8_t>(pack_nibbles(
-                        acc64[m][2 * p] * sc, acc64[m][2 * p + 1] * sc));
-                }
-            }
-        }
+        __syncthreads();   // the last slab is consumed before the next pass
     }
 }
 
@@ -446,6 +654,40 @@ pfb_factored_kernel(const float* __restrict__ scratch, int chunk,
     }
 }
 
+template <typename T, bool FAST, int MT>
+cudaError_t launch_direct_tiles(const void* adc, long long st_t,
+                                long long st_i, int ninput, int nspec,
+                                int nchan, int ntap, const void* window,
+                                const void* table, int kpad, int npad,
+                                const void* scale, void* out,
+                                cudaStream_t stream)
+{
+    const size_t smem = direct_smem(kpad, MT);
+    auto kernel = pfb_direct_kernel<T, FAST, MT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+        return err;
+    }
+    // every block's 16 inputs of one sample are 16 aligned bytes
+    const int tile_adc = sizeof(T) == 1 && st_i == 1 && st_t % 16 == 0
+        && ninput % D_TI == 0 && reinterpret_cast<uintptr_t>(adc) % 16 == 0;
+    const long long nblock = static_cast<long long>((nspec + MT - 1) / MT)
+                             * ((ninput + D_TI - 1) / D_TI);
+    if (nblock > 2147483647LL) {
+        return cudaErrorInvalidValue;
+    }
+    const dim3 grid(static_cast<unsigned>(nblock));
+    kernel<<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(adc), st_t, st_i, ninput, nspec, nchan, ntap,
+        static_cast<const float*>(window), static_cast<const float*>(table),
+        kpad, npad, static_cast<const float*>(scale), tile_adc,
+        static_cast<uint8_t*>(out));
+    return cudaGetLastError();
+}
+
+// Three row tiles a block where their e and o fit shared memory, else one.
 template <typename T, bool FAST>
 cudaError_t launch_direct(const void* adc, long long st_t, long long st_i,
                           int ninput, int nspec, int nchan, int ntap,
@@ -453,22 +695,17 @@ cudaError_t launch_direct(const void* adc, long long st_t, long long st_i,
                           int npad, const void* scale, void* out,
                           cudaStream_t stream)
 {
-    const size_t smem = (static_cast<size_t>(kpad) * D_BM + D_BK * D_BN)
-                        * sizeof(float);
-    auto kernel = pfb_direct_kernel<T, FAST>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-        return err;
+    if (direct_smem(kpad, D_MT) <= MAX_SHARED) {
+        return launch_direct_tiles<T, FAST, D_MT>(
+            adc, st_t, st_i, ninput, nspec, nchan, ntap, window, table, kpad,
+            npad, scale, out, stream);
     }
-    const dim3 grid((nspec + D_TS - 1) / D_TS, (ninput + D_TI - 1) / D_TI);
-    kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(adc), st_t, st_i, ninput, nspec, nchan, ntap,
-        static_cast<const float*>(window), static_cast<const float*>(table),
-        kpad, npad, static_cast<const float*>(scale),
-        static_cast<uint8_t*>(out));
-    return cudaGetLastError();
+    if (direct_smem(kpad, 1) <= MAX_SHARED) {
+        return launch_direct_tiles<T, FAST, 1>(
+            adc, st_t, st_i, ninput, nspec, nchan, ntap, window, table, kpad,
+            npad, scale, out, stream);
+    }
+    return cudaErrorInvalidValue;
 }
 
 template <typename T, bool FAST>
@@ -516,9 +753,10 @@ cudaError_t launch_factored(const void* adc, long long st_t, long long st_i,
 }  // namespace
 
 // adc: [ntime, ninput] int8 (is_int8) or float32 with element strides
-// st_t, st_i; window f32 [ntap][2 nchan]; table f32 [kpad][npad] (see
-// ops/pfb_fused.py::_direct_table); scale f32 [nchan]; out uint8
-// [ninput][nspec][nchan].  Returns the CUDA error of the launch.
+// st_t, st_i; window f32 [ntap][2 nchan]; table f32 [npad / 192][kpad / 8]
+// [cos, -sin][8][192] (see ops/pfb_fused.py::_direct_table), 16-byte
+// aligned; scale f32 [nchan]; out uint8 [ninput][nspec][nchan].  Returns
+// the CUDA error of the launch.
 extern "C" int cbd_pfb_direct(const void* adc, long long st_t,
                               long long st_i, int is_int8, int ninput,
                               int nspec, int nchan, int ntap,
@@ -526,10 +764,9 @@ extern "C" int cbd_pfb_direct(const void* adc, long long st_t,
                               int kpad, int npad, const void* scale,
                               int fast, void* out, void* stream)
 {
-    const int L = 2 * nchan;
-    if (ninput <= 0 || nspec <= 0 || ntap <= 0 || kpad < L
-        || kpad % D_BK != 0 || npad < L || npad % D_BN != 0
-        || ninput > 65535 * D_TI) {
+    if (ninput <= 0 || nspec <= 0 || ntap <= 0 || nchan <= 0
+        || kpad < nchan + 1 || kpad % D_KS != 0 || npad < nchan
+        || npad % D_CPASS != 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const auto s = static_cast<cudaStream_t>(stream);

@@ -26,8 +26,11 @@ import torch
 from . import pfb
 from .kernels import _build
 
-#: direct mode: rows of one block, k-tile, output-column tile
-DIRECT_ROWS, DIRECT_BK, DIRECT_BN = 64, 32, 128
+#: direct mode (``csrc/pfb_quantize.cu``): inputs of one block, spectra of
+#: one block (3, or 1 where 3 do not fit), table rows per slab, channels per
+#: pass, slab row pitch in floats, slabs in the copy ring
+DIRECT_TI, DIRECT_MT, DIRECT_KS, DIRECT_CPASS, DIRECT_BP = 16, 3, 8, 192, 200
+DIRECT_NSTAGE = 4
 #: shared memory one block may use (H100: 227 KB)
 MAX_SHARED = 232448
 #: largest float32 FIR scratch of one factored launch chunk
@@ -38,21 +41,51 @@ def _pad(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def direct_shared_bytes(L: int) -> int:
-    return (_pad(L, DIRECT_BK) * DIRECT_ROWS + DIRECT_BK * DIRECT_BN) * 4
+def direct_shared_bytes(L: int, mt: int = 1) -> int:
+    """Dynamic shared memory of the direct kernel with ``mt`` spectra a
+    block: the folded FIR rows e and o as doubles [kpad][16 mt + 4] and
+    the ring of table slabs."""
+    kpad = _pad(L // 2 + 1, DIRECT_KS)
+    return (2 * kpad * (DIRECT_TI * mt + 4) * 8
+            + DIRECT_NSTAGE * 2 * DIRECT_KS * DIRECT_BP * 4)
+
+
+def direct_table_ref(nchan: int) -> np.ndarray:
+    """The folded real-DFT table [npass, kpad / 8, 2, 8, 192] f32: entry
+    [p, k // 8, 0, k % 8, c % 192] is cos(2 pi k c / L) for k <= nchan and
+    [.., 1, ..] is -sin(2 pi k c / L) for 0 < k < nchan, from rows
+    k <= nchan of :func:`..pfb.rdft_matrices`; zero elsewhere.  With
+    e[k] = x[k] + x[L - k], o[k] = x[k] - x[L - k] (e[0] = x[0],
+    e[nchan] = x[nchan]): Re X = e . cos, Im X = o . (-sin)."""
+    cos_m, msin_m = pfb.rdft_matrices(nchan)
+    kpad = _pad(nchan + 1, DIRECT_KS)
+    npad = _pad(nchan, DIRECT_CPASS)
+    t = np.zeros((2, kpad, npad), np.float32)
+    t[0, :nchan + 1, :nchan] = cos_m[:nchan + 1]
+    t[1, 1:nchan, :nchan] = msin_m[1:nchan]
+    t = t.reshape(2, kpad // DIRECT_KS, DIRECT_KS, npad // DIRECT_CPASS,
+                  DIRECT_CPASS)
+    return np.ascontiguousarray(t.transpose(3, 1, 0, 2, 4))
+
+
+def fold_ref(fir: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's fold of FIR rows [..., L] into float64
+    (e, o) [..., nchan + 1]."""
+    L = fir.shape[-1]
+    nchan = L // 2
+    x = fir.to(torch.float64)
+    e = x[..., :nchan + 1].clone()
+    o = torch.zeros_like(e)
+    mirror = x[..., nchan + 1:].flip(-1)
+    e[..., 1:nchan] += mirror
+    o[..., 1:nchan] = x[..., 1:nchan] - mirror
+    return e, o
 
 
 @functools.lru_cache(maxsize=16)
 def _direct_table(nchan: int, fast: bool, device: str) -> torch.Tensor:
-    """[Kpad, Npad] f32: column 2c is cos, 2c+1 is -sin of channel c;
-    zero rows past L and zero columns past 2*nchan."""
-    cos_m, msin_m = pfb.rdft_matrices(nchan)
-    L = 2 * nchan
-    t = np.zeros((_pad(L, DIRECT_BK), _pad(2 * nchan, DIRECT_BN)),
-                 np.float32)
-    t[:L, 0:2 * nchan:2] = cos_m
-    t[:L, 1:2 * nchan:2] = msin_m
-    t = torch.from_numpy(t)
+    """:func:`direct_table_ref` on ``device``, bf16-rounded when ``fast``."""
+    t = torch.from_numpy(direct_table_ref(nchan))
     return (pfb.bf16_round(t) if fast else t).to(device)
 
 
@@ -107,8 +140,8 @@ def pfb_direct(x: torch.Tensor, window, nchan: int, ntap: int, scale,
     _build.launch("cbd_pfb_direct", dev, x.data_ptr(), x.stride(0),
                   x.stride(1), int(x.dtype == torch.int8), x.shape[1], nspec,
                   nchan, ntap, w.data_ptr(), table.data_ptr(),
-                  table.shape[0], table.shape[1], sc.data_ptr(), int(fast),
-                  out.data_ptr())
+                  table.shape[1] * DIRECT_KS, table.shape[0] * DIRECT_CPASS,
+                  sc.data_ptr(), int(fast), out.data_ptr())
     pfb_direct.launches += 1
     return out
 

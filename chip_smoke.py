@@ -40,9 +40,16 @@ kernel launch counts set to 0 just before it and read just after:
   sink, its packets byte for byte those of the unsharded driver run.
 
 A last run drives the two correlator schedules that no engine name
-selects, ``corr_acc(unpack_cache=True)`` and ``corr_rows``, over the golden
-stream through their wrappers and holds their slow sums to the plain slow
-dump.
+selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
+``corr_rows``, over the golden stream through their wrappers and holds
+their slow sums to the plain slow dump.
+
+Beside the two tensor-core kernels it times a library contraction as a
+yardstick, on earlier lines and labelled "contraction only":
+``torch._int_mm`` on unpacked int8 planes beside the correlator, float32 and
+float64 ``torch.matmul`` of the DFT's shape beside the direct channelizer.
+They leave out the unpack, the FIR, the epilogue and the requantizer, so
+``library_ms`` stays null; the port never calls them.
 
 It times each kernel beside its plain version and its bound (the larger
 of bytes moved over the memory rate and operations over the peak rate),
@@ -78,7 +85,9 @@ from caltech_bifrost_dsp_tpu_torch.models.xengine import (dense_vis, fx_step,
 from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
-from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import corr_acc, corr_acc_ref
+from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import (UNPACK_CACHE_DEFAULT,
+                                                        corr_acc,
+                                                        corr_acc_ref)
 from caltech_bifrost_dsp_tpu_torch.ops import corr_blk as cblk
 from caltech_bifrost_dsp_tpu_torch.ops import corr_rows as crows
 from caltech_bifrost_dsp_tpu_torch.ops.corr_triu import (TILE, corr_triu,
@@ -112,7 +121,7 @@ KERNELS = {
         fn=cblk.corr_blk, route="cuda",
         source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/corr_acc.cu",
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/corr_blk.py:402",
-        tolerance="exact int32 on the 64-input tiles with tile(j) >= "
+        tolerance="exact int32 on the 128-input tiles with tile(j) >= "
                   "tile(i); tiles below the diagonal stay zero"),
     "corr_rows": dict(
         fn=crows.corr_rows, route="cuda",
@@ -155,6 +164,9 @@ KERNELS = {
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/pfb_fused.py:383",
         tolerance=PFB_TOLERANCE),
 }
+#: the fused correlator's entry that ``corr_acc(unpack_cache=None)``, and so
+#: the main path, launches; the other schedule runs in the schedules run
+DEFAULT_CORR = "corr_acc_cached" if UNPACK_CACHE_DEFAULT else "corr_acc"
 #: why no kernel has a library time: no single PyTorch call computes its
 #: function on its inputs (4+4-bit packed bytes in, or a fused chain out)
 NO_LIBRARY = None
@@ -271,7 +283,8 @@ def phase_kernels(dev, card: str, results: dict) -> None:
         want = [p.clone() for p in init]
         corr_acc_ref(xc, Vis(*want[:2]), Vis(*want[2:]), *flags)
         got = init
-        corr_acc(packed, Vis(*got[:2]), Vis(*got[2:]), *flags)
+        corr_acc(packed, Vis(*got[:2]), Vis(*got[2:]), *flags,
+                 unpack_cache=False)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             check(torch.equal(a[:, upper], b[:, upper]),
@@ -281,8 +294,8 @@ def phase_kernels(dev, card: str, results: dict) -> None:
     del want
     state = rand_planes()
     fast, slow = Vis(*state[:2]), Vis(*state[2:])
-    ms = cuda_ms(lambda: corr_acc(packed, fast, slow, False, True, False),
-                 5)
+    ms = cuda_ms(lambda: corr_acc(packed, fast, slow, False, True, False,
+                                  unpack_cache=False), 5)
     plain_ms = cuda_ms(lambda: corr_acc_ref(xc, fast, slow, False, True,
                                             False), 2)
     # flags (False, True, False): all four planes read and written
@@ -290,6 +303,7 @@ def phase_kernels(dev, card: str, results: dict) -> None:
                                **corr_bound(nchan, ntime, ni, 64, 4, 4))
     phase_cached(dev, card, results, packed, xc, upper, rand_planes,
                  plain_ms)
+    int_mm_yardstick(card, packed)
 
     pairs = torch.from_numpy(PAIRS).to(dev)
     got = cs.corr_subsel(fast, pairs, cfg.nchan_sum)
@@ -380,7 +394,7 @@ def phase_cached(dev, card, results, packed, xc, upper, rand_planes,
             corr_acc_ref(view, Vis(*want[:2]), Vis(*want[2:]), *flags)
             default = [p.clone() for p in init]
             corr_acc(blk, Vis(*default[:2]), Vis(*default[2:]), *flags,
-                     layout=layout)
+                     layout=layout, unpack_cache=False)
             corr_acc(blk, Vis(*init[:2]), Vis(*init[2:]), *flags,
                      layout=layout, unpack_cache=True)
             torch.cuda.synchronize()
@@ -403,6 +417,45 @@ def phase_cached(dev, card, results, packed, xc, upper, rand_planes,
     results["corr_acc_cached"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **corr_bound(cfg.nchan, cfg.acc_len, cfg.ninput, 64, 4, 4))
+
+
+def int_mm_yardstick(card: str, packed, nchan: int = 4) -> None:
+    """Contraction only: ``torch._int_mm`` on unpacked int8 planes of
+    ``nchan`` channels, the four real products re.re, im.im, im.re, re.im
+    of the full 704 x 704 matrix each, scaled to the block's channels.  No
+    unpack, no triangle, no accumulator algebra: a yardstick for the
+    tensor-core contraction, not a library version of the kernel."""
+    x = packed[:, :nchan].permute(1, 2, 0).to(torch.int16)   # [c, i, t]
+    re = (((x >> 4) ^ 8) - 8).to(torch.int8).contiguous()
+    im = (((x & 15) ^ 8) - 8).to(torch.int8).contiguous()
+
+    def products():
+        for c in range(nchan):
+            for a, b in ((re, re), (im, im), (im, re), (re, im)):
+                torch._int_mm(a[c], b[c].t())
+
+    ms = cuda_ms(products, 5) * packed.shape[1] / nchan
+    print(f"[{card}] yardstick, contraction only: torch._int_mm, 4 real "
+          f"products of [704, 2400] x [2400, 704] int8 per channel, timed "
+          f"on {nchan} channels and scaled to {packed.shape[1]}: {ms:.3f} "
+          f"ms (no unpack, full matrix, no epilogue)", flush=True)
+
+
+def matmul_yardstick(card: str, nrow: int, L: int, part: int = 8) -> None:
+    """Contraction only: one ``torch.matmul`` of [rows, L] x [L, L] in
+    float32 and in float64 (the direct channelizer's DFT as one product of
+    the full depth, Re and Im columns side by side), timed on 1 / ``part``
+    of the rows and scaled.  No FIR, no fold, no requantizer."""
+    n = nrow // part
+    for dtype in (torch.float32, torch.float64):
+        a = torch.randn((n, L), device="cuda", dtype=dtype)
+        b = torch.randn((L, L), device="cuda", dtype=dtype)
+        ms = cuda_ms(lambda: torch.matmul(a, b), 5) * nrow / n
+        print(f"[{card}] yardstick, contraction only: torch.matmul "
+              f"{str(dtype).split('.')[-1]} [{nrow}, {L}] x [{L}, {L}], "
+              f"timed on {n} rows and scaled: {ms:.3f} ms (no FIR, no "
+              f"requantizer)", flush=True)
+        del a, b
 
 
 def golden_windows(cfg, nwin: int) -> list:
@@ -622,7 +675,7 @@ def run_fx_path(dev, gains_np, window_s: list) -> tuple[dict, float]:
               f"~2.5 codes on noise)", flush=True)
         records, gains, scale, counts = drive_fx(dev, cfg_r, wins, gains_np,
                                                  qs, window_s)
-        for name in ("pfb_direct", "corr_acc", "beamform_products",
+        for name in ("pfb_direct", DEFAULT_CORR, "beamform_products",
                      "subsel_gather"):
             check(counts[name] > 0, f"[FX {label}] {name} not launched")
         print(f"[FX {label}] kernel launches: {counts}", flush=True)
@@ -737,6 +790,7 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
             adc, window, cfg.nchan, ntap, qs), 2))
     print_kernel(card, "pfb_direct", results["pfb_direct"],
                  "per 2400-spectra window at 704 inputs")
+    matmul_yardstick(card, cfg.ninput * cfg.acc_len, L)
 
 
 def phase_triu(dev, card: str, results: dict) -> None:
@@ -991,7 +1045,7 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
                                   ("subsel", "pbeam", "ibeam"))
     print(f"[driver {label}] kernel launches: {counts}", flush=True)
     correlator = {"pallas_triu": "corr_triu", "pallas_blk": (
-        "corr_acc" if mesh is None else "corr_blk")}[engines["corr_engine"]]
+        DEFAULT_CORR if mesh is None else "corr_blk")}[engines["corr_engine"]]
     for name in (correlator, "subsel_gather", "beamform_products"):
         check(counts[name] > 0, f"[driver {label}] {name} not launched")
     check((pipe.ndump_fast, pipe.ndump_slow) == (nwin, 1),
@@ -1276,8 +1330,8 @@ def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
                  "subsel_gather"):
         check(programs[name] > 0, f"[mesh] {name} not launched by the "
               "sharded programs")
-    check(programs["corr_acc"] == 0, "[mesh] the sharded programs launched "
-          "the unsharded correlator")
+    check(programs["corr_acc"] == 0 and programs["corr_acc_cached"] == 0,
+          "[mesh] the sharded programs launched the unsharded correlator")
     print(f"[mesh] kernel launches of the sharded programs: {programs}",
           flush=True)
     fx.times(card)
@@ -1308,15 +1362,18 @@ def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
 
 def run_schedules_path(dev, cfg, blocks, slow) -> dict:
     """The two correlator schedules that no engine name selects, each over
-    the golden stream through its wrapper: ``corr_acc(unpack_cache=True)``
-    carries the fast and slow accumulators gulp by gulp over the three
-    windows, ``corr_rows`` correlates each gulp and the results are summed.
-    Both slow sums must equal the plain slow dump.  Returns the counts."""
+    the golden stream through its wrapper: ``corr_acc`` with the
+    ``unpack_cache`` that is not the default carries the fast and slow
+    accumulators gulp by gulp over the three windows, ``corr_rows``
+    correlates each gulp and the results are summed.  Both slow sums must
+    equal the plain slow dump.  Returns the counts."""
     zero_counts()
     state = init_state(cfg, dev)
     total = None
+    other = not UNPACK_CACHE_DEFAULT
+    other_name = "corr_acc_cached" if other else "corr_acc"
     for w, first, last, gulp in gulps_of(dev, cfg, blocks):
-        corr_acc(gulp, *state, first, last, w == 0, unpack_cache=True)
+        corr_acc(gulp, *state, first, last, w == 0, unpack_cache=other)
         vis = crows.corr_rows(gulp)
         if total is None:
             total = vis
@@ -1327,14 +1384,14 @@ def run_schedules_path(dev, cfg, blocks, slow) -> dict:
     counts = read_counts()
     want = Vis(*(torch.from_numpy(p).to(dev) for p in slow))
     check(vis_equal(dense_vis(state.vis_slow, cfg), want),
-          "corr_acc(unpack_cache=True) slow dump over the golden stream")
+          f"corr_acc(unpack_cache={other}) slow dump over the golden stream")
     check(vis_equal(dense_vis(total, cfg), want),
           "corr_rows summed over the golden stream")
-    for name in ("corr_acc_cached", "corr_rows"):
+    for name in (other_name, "corr_rows"):
         check(counts[name] > 0, f"{name} not launched")
     print(f"correlator schedules over the golden stream: slow dumps of "
-          f"corr_acc(unpack_cache=True) and of summed corr_rows gulps equal "
-          f"the plain slow dump exactly; kernel launches {counts}",
+          f"corr_acc(unpack_cache={other}) and of summed corr_rows gulps "
+          f"equal the plain slow dump exactly; kernel launches {counts}",
           flush=True)
     return counts
 
@@ -1376,7 +1433,7 @@ def main() -> int:
     run_geometry(dev, cfg184, golden_windows(cfg184, 1),
                  [g[:184] for g in gains_np], window_s)
     xb = read_counts()
-    for name in ("corr_acc", "beamform_products", "subsel_gather"):
+    for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
         check(xb[name] > 0, f"kernel {name} not launched by the X/B path")
     print(f"X/B path kernel launches: {xb}", flush=True)
     # path 2, FX: raw ADC through the channelizer
@@ -1418,7 +1475,8 @@ def main() -> int:
                                            True, False, tcfg), 5)
     print(f"[{card}] xengine_step per window, pallas_triu engines "
           f"(corr_triu.cu + in-place adds): {triu_ms:.3f} ms; default "
-          f"engines (corr_acc.cu): {step_ms:.3f} ms", flush=True)
+          f"engines (corr_acc.cu, {DEFAULT_CORR}): {step_ms:.3f} ms",
+          flush=True)
     print(f"[{card}] XEngineRunner host time per window (H2D from pinned "
           f"memory, step, products to numpy): "
           + ", ".join(f"{s:.3f} s" for s in window_s), flush=True)

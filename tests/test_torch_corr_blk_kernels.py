@@ -8,7 +8,8 @@ Marked ``cuda``: each test skips without a CUDA device.  On a GPU host
 without JAX run it as ``python -m pytest --noconftest
 tests/test_torch_corr_blk_kernels.py`` (the suite's conftest imports JAX).
 Shapes are ragged (inputs not a multiple of the tile, times not a multiple
-of the 32-sample stage nor of the row kernel's 512-sample segment), padded
+of the 64-sample chunk, of the 32-sample MMA step nor of the row kernel's
+512-sample segment; 1, 31 and 33 spectra; 72, 300 and 704 inputs), padded
 cti, strided shard views of a larger block, and production widths.  Checks
 are exact int32 on every entry of the valid tiles; tiles below the diagonal
 stay zero; the unpack-once state is bit-identical to the default kernel's.
@@ -58,7 +59,8 @@ SHAPES = [(50, 2, 72, "tci", 0, False), (33, 3, 130, "cti", 6, False),
           (1, 1, 256, "tci", 0, False), (997, 2, 300, "cti", 20, False),
           (513, 2, 140, "tci", 0, False), (1100, 3, 200, "tci", 8, True),
           (2400, 2, 704, "tci", 0, False), (480, 2, 704, "cti", 64, False),
-          (1200, 2, 704, "tci", 0, True)]
+          (1200, 2, 704, "tci", 0, True), (31, 2, 72, "tci", 3, True),
+          (33, 1, 300, "tci", 0, False), (65, 2, 129, "tci", 1, True)]
 
 
 @pytest.mark.parametrize("name", sorted(GULP))
@@ -95,7 +97,9 @@ def test_gulp_correlator_refuses_bad_input(dev, name):
 
 @pytest.mark.parametrize("ntime,nchan,ni,layout,pad,view", [
     (50, 2, 72, "tci", 0, False), (97, 2, 300, "cti", 20, False),
-    (330, 3, 140, "tci", 5, True), (2400, 2, 704, "tci", 0, False)])
+    (330, 3, 140, "tci", 5, True), (2400, 2, 704, "tci", 0, False),
+    (1, 1, 72, "tci", 0, False), (31, 2, 300, "tci", 0, True),
+    (33, 2, 704, "cti", 64, False)])
 def test_unpack_cache_matches_plain_and_default_kernel(dev, ntime, nchan, ni,
                                                        layout, pad, view):
     rng = np.random.RandomState(ni + ntime)

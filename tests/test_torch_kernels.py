@@ -3,9 +3,11 @@
 Marked ``cuda``: each test skips without a CUDA device.  On a GPU host
 without JAX run them as ``python -m pytest --noconftest
 tests/test_torch_kernels.py`` (the suite's conftest imports JAX).  Shapes
-are small and ragged (inputs not a multiple of the 64-input tile, times
-not a multiple of the 32-sample stage or of the 96-sample beam tile) plus
-one production-width case per kernel.
+are small and ragged (inputs not a multiple of the 128-input tile, times
+not a multiple of the 64-sample chunk, of the 32-sample MMA step or of the
+96-sample beam tile) plus one production-width case per kernel; the
+correlator also takes a structured block (a distinct value per input and
+per time sample) and one of 0x88 bytes (both nibbles -8).
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
+from caltech_bifrost_dsp_tpu_torch.ops import corr_blk as cb
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import corr_acc, corr_acc_ref
 from caltech_bifrost_dsp_tpu_torch.ops.correlate import Vis, chan_major
@@ -32,21 +35,32 @@ def dev():
     return torch.device("cuda")
 
 
-def _packed(rng, layout, ntime, nchan, ni, pad, dev):
+def _packed(rng, layout, ntime, nchan, ni, pad, dev, kind="random"):
     shape = (ntime, nchan, ni) if layout == "tci" else (nchan, ntime, ni + pad)
-    packed = rng.randint(0, 256, shape).astype(np.uint8)
+    if kind == "random":
+        packed = rng.randint(0, 256, shape).astype(np.uint8)
+    elif kind == "widest":
+        packed = np.full(shape, 0x88, np.uint8)
+    else:       # structured: distinct per input, time sample and channel
+        a, b, i = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+        packed = ((i * 7 + a * 13 + b * 29) % 256).astype(np.uint8)
     return torch.from_numpy(packed).to(dev)
 
 
-@pytest.mark.parametrize("ntime,nchan,ni,layout,pad", [
-    (50, 2, 72, "tci", 0), (33, 3, 130, "cti", 6), (2400, 2, 704, "tci", 0),
-    (480, 2, 704, "cti", 64)])
-def test_corr_acc_matches_plain(dev, ntime, nchan, ni, layout, pad):
+@pytest.mark.parametrize("unpack_cache", [False, True])
+@pytest.mark.parametrize("ntime,nchan,ni,layout,pad,kind", [
+    (50, 2, 72, "tci", 0, "random"), (33, 3, 130, "cti", 6, "random"),
+    (2400, 2, 704, "tci", 0, "random"), (480, 2, 704, "cti", 64, "random"),
+    (997, 3, 300, "cti", 20, "random"), (1, 1, 72, "tci", 0, "random"),
+    (31, 2, 300, "tci", 0, "structured"), (33, 1, 704, "tci", 0, "structured"),
+    (2400, 1, 300, "tci", 0, "widest"), (130, 2, 257, "cti", 3, "structured")])
+def test_corr_acc_matches_plain(dev, ntime, nchan, ni, layout, pad, kind,
+                                unpack_cache):
     """Exact int32 on the upper-valid tiles for every flag combination;
     tiles below the diagonal are left untouched."""
     rng = np.random.RandomState(ni + ntime)
-    packed = _packed(rng, layout, ntime, nchan, ni, pad, dev)
-    tile = torch.arange(ni, device=dev) // 64
+    packed = _packed(rng, layout, ntime, nchan, ni, pad, dev, kind)
+    tile = torch.arange(ni, device=dev) // cb.TILE
     valid = tile[:, None] <= tile[None, :]
     for flags in FLAGS:
         init = [torch.from_numpy(rng.randint(-999, 999, (nchan, ni, ni))
@@ -55,7 +69,8 @@ def test_corr_acc_matches_plain(dev, ntime, nchan, ni, layout, pad):
         corr_acc_ref(chan_major(packed, layout, ni), Vis(*want[:2]),
                      Vis(*want[2:]), *flags)
         got = [p.clone() for p in init]
-        corr_acc(packed, Vis(*got[:2]), Vis(*got[2:]), *flags, layout=layout)
+        corr_acc(packed, Vis(*got[:2]), Vis(*got[2:]), *flags, layout=layout,
+                 unpack_cache=unpack_cache)
         torch.cuda.synchronize()
         for g, w, s in zip(got, want, init):
             assert torch.equal(g[:, valid], w[:, valid]), flags
@@ -123,15 +138,19 @@ def test_launch_counters_count_kernel_launches(dev):
     gains = bf.BeamGains(*(torch.ones((4, 2, 16), device=dev)
                            for _ in range(2)))
     pairs = torch.zeros((3, 2), dtype=torch.int32, device=dev)
-    before = (corr_acc.launches, bf.beamform_products.launches,
-              cs.corr_subsel.launches)
+    def counts():
+        return (corr_acc.launches, corr_acc.cached_launches,
+                bf.beamform_products.launches, cs.corr_subsel.launches)
+
+    before = counts()
+    corr_acc(packed, Vis(*vis[:2]), Vis(*vis[2:]), True, True, True,
+             unpack_cache=False)
+    # the default schedule is the unpack-once pair
     corr_acc(packed, Vis(*vis[:2]), Vis(*vis[2:]), True, True, True)
     bf.beamform_products(packed, gains, 12)
     cs.corr_subsel(Vis(*vis[:2]), pairs, 4)
     torch.cuda.synchronize()
-    after = (corr_acc.launches, bf.beamform_products.launches,
-             cs.corr_subsel.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
 
 
 @pytest.mark.parametrize("layout", ["tci", "cti"])

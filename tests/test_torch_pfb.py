@@ -207,3 +207,65 @@ def test_rejects_bad_inputs():
         pfb_fused.pfb_direct(good, w, 16, 4, 1.0)
     with pytest.raises(ValueError, match="factored"):
         pfb_fused.pfb_factored(good, w, 16, 4, 1.0)
+
+
+@pytest.mark.parametrize("nchan", [16, 184, 192, 200])
+def test_direct_table_is_the_folded_rdft(nchan):
+    """The direct kernel's table, element by element: slab layout [pass,
+    k // 8, (cos, -sin), k % 8, c % 192] of rows k <= nchan of
+    ``rdft_matrices``; -sin rows 0 and nchan, pad rows and pad channels
+    are zero."""
+    cos_m, msin_m = pfb.rdft_matrices(nchan)
+    t = pfb_fused.direct_table_ref(nchan)
+    ks, cp = pfb_fused.DIRECT_KS, pfb_fused.DIRECT_CPASS
+    kpad, npad = -(-(nchan + 1) // ks) * ks, -(-nchan // cp) * cp
+    assert t.shape == (npad // cp, kpad // ks, 2, ks, cp)
+    assert t.dtype == np.float32 and t.flags["C_CONTIGUOUS"]
+    flat = t.transpose(2, 1, 3, 0, 4).reshape(2, kpad, npad)
+    np.testing.assert_array_equal(flat[0, :nchan + 1, :nchan],
+                                  cos_m[:nchan + 1])
+    np.testing.assert_array_equal(flat[1, 1:nchan, :nchan], msin_m[1:nchan])
+    assert not flat[1, 0].any() and not flat[1, nchan:].any()
+    assert not flat[:, nchan + 1:].any() and not flat[:, :, nchan:].any()
+    for k, c in [(0, 0), (nchan, nchan - 1), (7, 5), (9, nchan - 3)]:
+        want = (cos_m[k, c], msin_m[k, c] if 0 < k < nchan else 0.0)
+        got = t[c // cp, k // ks, :, k % ks, c % cp]
+        assert tuple(got) == want
+
+
+@pytest.mark.parametrize("nchan", [16, 192])
+def test_fold_ref_and_table_give_the_real_dft(nchan, rng):
+    """e . cos and o . (-sin) from the folded rows and table equal the
+    float64 product with the full ``rdft_matrices`` to 1e-6 of the
+    spectrum's rms (a mirrored table entry may differ by a float32 ulp)."""
+    L = 2 * nchan
+    fir = torch.from_numpy(rng.randn(5, L).astype(np.float32) * 50)
+    e, o = pfb_fused.fold_ref(fir)
+    assert e.dtype == torch.float64 and e.shape == (5, nchan + 1)
+    x = fir.double()
+    assert torch.equal(e[:, 0], x[:, 0]) and torch.equal(e[:, nchan],
+                                                         x[:, nchan])
+    assert torch.equal(e[:, 3], x[:, 3] + x[:, L - 3])
+    assert torch.equal(o[:, 3], x[:, 3] - x[:, L - 3])
+    assert not o[:, 0].any() and not o[:, nchan].any()
+    cos_m, msin_m = (torch.from_numpy(m).double()
+                     for m in pfb.rdft_matrices(nchan))
+    t = torch.from_numpy(pfb_fused.direct_table_ref(nchan)).double()
+    flat = t.permute(2, 1, 3, 0, 4).reshape(2, -1, t.shape[0] * t.shape[4])
+    re = e @ flat[0, :nchan + 1, :nchan]
+    im = o @ flat[1, :nchan + 1, :nchan]
+    want_re, want_im = x @ cos_m, x @ msin_m
+    rms = float(want_re.std())
+    assert float((re - want_re).abs().max()) <= 1e-6 * rms
+    assert float((im - want_im).abs().max()) <= 1e-6 * rms
+
+
+def test_direct_shared_bytes_is_what_the_kernel_asks_for():
+    """e and o [kpad][16 mt + 4] doubles plus four [2][8][200] float slabs:
+    three spectra a block at the production L, one up to L ~ 1130."""
+    assert pfb_fused.direct_shared_bytes(384, 3) == 2 * 200 * 52 * 8 + 51200
+    assert pfb_fused.direct_shared_bytes(384, 3) <= pfb_fused.MAX_SHARED
+    assert pfb_fused.direct_shared_bytes(384) == 2 * 200 * 20 * 8 + 51200
+    assert pfb_fused.direct_shared_bytes(870, 3) > pfb_fused.MAX_SHARED
+    assert pfb_fused.direct_shared_bytes(870) <= pfb_fused.MAX_SHARED
+    assert pfb_fused.direct_shared_bytes(2046) > pfb_fused.MAX_SHARED

@@ -4,9 +4,12 @@ float64 plain version, on the card.
 Marked ``cuda``: each test skips without a CUDA device.  On a GPU host
 without JAX run ``python -m pytest --noconftest
 tests/test_torch_pfb_kernels.py``.  Ragged shapes (L = 368, spectra not a
-multiple of 8, 130 inputs), both DFT modes and both precisions, scalar and
-per-channel scales, int8 against float32 ADC, and one production-width
-case per mode.  Gate: every differing nibble is one step from the
+multiple of the block's 3, inputs not a multiple of its 16, one spectrum,
+200 channels = two channel passes of the direct kernel, 435 channels = its
+one-spectrum blocks), both DFT modes and both precisions, scalar and
+per-channel scales, int8 against float32 ADC, a structured ADC (tones and
+a ramp, distinct per input), and one production-width case per mode with
+the threshold-case count held to 1e-6 of the codes.  Gate: every differing nibble is one step from the
 reference at a value within 1e-3 of the rounding threshold, and such
 threshold cases are at most 1e-6 of the values (1e-5 in bf16 mode, where
 an operand on a bf16 rounding tie may round either way), plus 2.
@@ -64,7 +67,8 @@ def check(got, x, w, nchan, ntap, scale, fast):
 
 @pytest.mark.parametrize("nchan,nspec,ninput", [
     (184, 13, 130), (192, 5, 33), (16, 9, 70), (4096, 5, 130),
-    (2048, 3, 35)])
+    (2048, 3, 35), (200, 4, 17), (435, 2, 20), (192, 1, 16), (192, 7, 704),
+    (184, 5, 48)])
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("per_chan", [False, True])
 def test_kernel_matches_plain(dev, nchan, nspec, ninput, fast, per_chan):
@@ -109,6 +113,30 @@ def test_strided_adc_and_single_tap(dev):
     w1 = torch.from_numpy(pfb.pfb_window(nchan, 1)).to(dev)
     got = pfb_fused.pfb_quantize_packed(x, w1, nchan, 1, 0.3)
     check(got, x, w1, nchan, 1, 0.3, False)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_structured_adc(dev, fast):
+    """Tones in channels 5 and 77 plus a ramp, amplitudes and phases
+    distinct per input: a wrong row, lane or channel map shows as a tone in
+    the wrong place, not as noise."""
+    nchan, ntap, nspec, ninput = 192, 4, 8, 40
+    L = 2 * nchan
+    t = torch.arange((nspec + ntap - 1) * L, device=dev,
+                     dtype=torch.float64)[:, None]
+    i = torch.arange(ninput, device=dev, dtype=torch.float64)[None, :]
+    x = ((20 + i) * torch.cos(2 * np.pi * 5 * t / L + 0.1 * i)
+         + (60 - i) * torch.sin(2 * np.pi * 77 * t / L + 0.3 * i)
+         + (t % 17) - 8).round().clamp(-127, 127).to(torch.int8)
+    w = torch.from_numpy(pfb.pfb_window(nchan, ntap)).to(dev)
+    scale = 7.0 / float(pfb.pfb_prequant_ref(x[:, :4], w, nchan, ntap,
+                                              1.0)[0].abs().max())
+    got = pfb_fused.pfb_quantize_packed(x, w, nchan, ntap, scale, fast)
+    torch.cuda.synchronize()
+    check(got, x, w, nchan, ntap, scale, fast)
+    mag = (got >> 4).to(torch.int8)
+    mag = torch.where(mag > 7, mag - 16, mag).abs().float().mean((0, 1))
+    assert set(mag.topk(2).indices.tolist()) == {5, 77}
 
 
 @pytest.mark.parametrize("nchan,nspec,fast", [
