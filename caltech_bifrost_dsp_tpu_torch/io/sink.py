@@ -100,6 +100,9 @@ class CorrFullOutput:
         self.send = send
         self.max_mbps = max_mbps
         self.use_cor_fmt = use_cor_fmt
+        # write_autos: a directory for per-dump autocorrelation spectra
+        # (.npy), None = off; set by the output command block
+        self.autos_path: str | None = None
         self.throttle = Throttle(max_mbps * 1e6 if max_mbps > 0 else None)
         self.perf = PerfTimer()
         self.checkfile = checkfile
@@ -144,6 +147,23 @@ class CorrFullOutput:
             self.check_failures += 1
         return ok
 
+    def write_autos(self, vis_dense: np.ndarray, spectra_id: int) -> str:
+        """Dump per-stand autocorrelation spectra (real f32 [nstand, npol,
+        nchan]) of a dense complex matrix to
+        ``<autos_path>/autos_<spectra_id>.npy``."""
+        return self._write_autos_planes(np.real(vis_dense), spectra_id)
+
+    def _write_autos_planes(self, vis_re: np.ndarray,
+                            spectra_id: int) -> str:
+        """:meth:`write_autos` from the real int32 plane: autocorrelations
+        are real, so its diagonal suffices."""
+        from ..ops.correlate import autocorr_spectra
+
+        autos = autocorr_spectra(vis_re, self.cfg.nstand, self.cfg.npol)
+        fname = os.path.join(self.autos_path, "autos_%d.npy" % spectra_id)
+        np.save(fname, autos)
+        return fname
+
     def send_matrix(self, vis_dense: np.ndarray, sync_time: int,
                     spectra_id: int, acc_len: int) -> int:
         """:meth:`send_matrix_planes` of a dense complex matrix [nchan,
@@ -159,6 +179,8 @@ class CorrFullOutput:
         """Packetize the upper triangle of int32 planes [nchan, ninput,
         ninput], one dual-pol baseline (stand s0, stand s1 >= s0) per
         packet.  Returns packets sent."""
+        if self.autos_path:
+            self._write_autos_planes(np.asarray(vis_re), spectra_id)
         if self.send is None:
             return 0
         cfg = self.cfg

@@ -27,6 +27,43 @@ from .kernels import _build
 from ..utils.codec import unpack
 
 
+#: ``csrc/beamform_products.cu``: inputs per staged chunk, beam rows of a
+#: gain tile and bf16 terms of a float32 gain (hi + mid + lo, exact)
+SPLIT_KC, SPLIT_BEAMS, SPLIT_TERMS = 32, 32, 3
+
+
+def split_shape(nchan: int, ninput: int) -> tuple[int, int, int, int, int]:
+    """Shape of the kernel's split-gain scratch: int32 words
+    [nchan, ceil(ninput / 32), term, beam 32, 32], each the bf16 term of
+    Gr in the low half and of Gi in the high half."""
+    return (nchan, -(-ninput // SPLIT_KC), SPLIT_TERMS, SPLIT_BEAMS,
+            SPLIT_KC)
+
+
+def split_gains_ref(gains: "BeamGains") -> torch.Tensor:
+    """Plain version of the kernel's gain prepass: float32 gains as three
+    bf16 terms hi = bf16(g), mid = bf16(g - hi), lo = bf16(g - hi - mid)
+    (their sum is g exactly), packed as int32 words in
+    :func:`split_shape`'s layout."""
+    nchan, nbeam, ninput = gains.real.shape
+    shape = split_shape(nchan, ninput)
+    words = torch.zeros(shape, dtype=torch.int32, device=gains.real.device)
+    pad = shape[1] * SPLIT_KC - ninput
+    halves = []
+    for plane in gains:
+        rest = torch.nn.functional.pad(plane.to(torch.float32), (0, pad))
+        terms = []
+        for _ in range(SPLIT_TERMS):
+            term = rest.to(torch.bfloat16)
+            terms.append(term.view(torch.int16).to(torch.int32) & 0xFFFF)
+            rest = rest - term.to(torch.float32)
+        halves.append(torch.stack(terms, 1))          # [c, term, b, i]
+    both = halves[0] | (halves[1] << 16)
+    both = both.reshape(nchan, SPLIT_TERMS, nbeam, shape[1], SPLIT_KC)
+    words[:, :, :, :nbeam] = both.permute(0, 3, 1, 2, 4)
+    return words
+
+
 class BeamGains(NamedTuple):
     """Complex gains as f32 planes [nchan, nbeam, ninput]."""
     real: torch.Tensor
@@ -147,7 +184,11 @@ def beamform_products(packed: torch.Tensor, gains: BeamGains,
       (power f32 [nbeam//2, ntime//ntime_sum, nchan, 4] or None,
        vlbi f32 [ntime, nchan, 2, 2] or None).
     CPU tensors take :func:`beamform_products_ref`; CUDA tensors launch
-    the kernel, which writes only these products.
+    the kernel, which writes only these products.  The kernel contracts
+    on the bf16 tensor cores from an explicit three-term bf16 split of the
+    float32 gains (exact for finite gains of ordinary size, about 1e-30 <
+    |g| < 3e38) made anew on every call, so gains changed in place, as by
+    a ``load_gains`` command, take effect at the next call.
     """
     if not (want_power or want_vlbi):
         return None, None
@@ -176,9 +217,12 @@ def beamform_products(packed: torch.Tensor, gains: BeamGains,
     if want_vlbi:
         vlbi = torch.empty((ntime, nchan, 2, 2), dtype=torch.float32,
                            device=dev)
+    gsplit = torch.empty(split_shape(nchan, ninput), dtype=torch.int32,
+                         device=dev)
     _build.launch("cbd_beamform_products", dev, xc.data_ptr(), xc.stride(0),
                   xc.stride(1), nchan, ntime, ninput, gains.real.data_ptr(),
-                  gains.imag.data_ptr(), nbeam, ntime_sum,
+                  gains.imag.data_ptr(), nbeam, ntime_sum, gsplit.data_ptr(),
+                  gsplit.numel(),
                   None if power is None else power.data_ptr(),
                   None if vlbi is None else vlbi.data_ptr())
     beamform_products.launches += 1

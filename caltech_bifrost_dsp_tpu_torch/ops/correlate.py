@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.codec import unpack
@@ -99,6 +100,17 @@ def correlate_accumulate(packed: torch.Tensor, ntime_gulp: int,
         raise ValueError(f"ntime {ntime} not a multiple of gulp {ntime_gulp}")
     vis = correlate_gulp(packed)
     return vis if acc is None else acc + vis
+
+
+def autocorr_spectra(vis_dense, nstand: int, npol: int = 2) -> np.ndarray:
+    """Per-stand autocorrelation spectra from a dense visibility cube
+    [nchan, ninput, ninput] (complex, or the real plane alone) -> real f32
+    [nstand, npol, nchan].  The one home of the input order
+    (input = stand * npol + pol); numpy, as the sink that calls it."""
+    v = np.asarray(vis_dense)
+    nin = nstand * npol
+    diag = np.real(v[:, np.arange(nin), np.arange(nin)])
+    return diag.T.reshape(nstand, npol, v.shape[0]).astype(np.float32)
 
 
 def mirror_vis(vis: Vis) -> Vis:

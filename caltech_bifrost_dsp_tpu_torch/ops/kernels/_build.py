@@ -38,7 +38,7 @@ SIGNATURES = {
     "cbd_corr_rows": (_P, _L, _L, _I, _I, _I, _P, _P, _P),
     "cbd_corr_triu": (_P, _L, _L, _I, _I, _I, _P, _P, _P),
     "cbd_beamform_products": (_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P,
-                              _P, _P),
+                              _L, _P, _P, _P),
     "cbd_subsel_gather": (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
     "cbd_pfb_direct": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
                        _I, _P, _P),

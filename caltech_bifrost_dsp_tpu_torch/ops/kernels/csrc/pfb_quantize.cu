@@ -17,21 +17,22 @@
 // values give the same bytes.  Output is input-major [ninput, nspec,
 // nchan], the TPU function's layout.
 //
-// Precision.  Direct mode contracts on the FP64 tensor cores: the float32
-// FIR rows and the float32 table convert to double exactly, every product
-// is exact and the sums are double, as in the float64 reference, so the
-// only difference from it is the fold below (a table entry may differ from
-// its mirror image by one float32 ulp) and the order of the sums: ~5e-8 of
-// a code, and few values land on the other side of a rounding threshold.
-// The factored mode runs in float32 FMA (never TF32, which would flip many
-// rounding decisions) with float32 partial sums over 32-term slices added
-// into a float64 accumulator.  v * scale is formed in float64.  fast=1
-// (the TPU kernel's bf16 mode, pfb_fused.py:95-102) rounds the DFT operands
-// to bf16 with __float2bfloat16_rn where the TPU kernel casts: the FIR
-// frames, the tables (rounded by the wrapper) and, in the factored
-// transform, the twiddled intermediates (:269-276); direct mode then runs
-// the same FP64 contraction on the rounded operands, which is what the
-// reference of that mode computes.
+// Precision.  Both modes contract on the FP64 tensor cores: the float32
+// FIR rows and the float32 tables convert to double exactly, every product
+// is exact and the sums are double, as in the float64 reference.  What
+// differs from it is the order of the sums and, in direct mode, the fold
+// below (a table entry may differ from its mirror image by one float32
+// ulp): ~5e-8 of a code; in factored mode, the twiddled intermediate kept
+// as float32 between the stages (~1e-7 of a code) and the mirrored half of
+// stage 1.  Few values land on the other side of a rounding threshold.
+// Never TF32, which would flip many rounding decisions.  v * scale is
+// formed in float64.  fast=1 (the TPU kernel's bf16 mode,
+// pfb_fused.py:95-102) rounds the DFT operands to bf16 with
+// __float2bfloat16_rn where the TPU kernel casts: the FIR frames, the
+// tables (rounded by the wrapper) and, in the factored transform, the
+// twiddled intermediates (:269-276), rounded from the float64 stage-1 sum;
+// the same FP64 contraction then runs on the rounded operands, which is
+// what the reference of that mode computes.
 //
 // Direct mode (L < 2048; production L = 384), mma.sync.m16n8k8.f64.  The
 // real-input DFT is folded: with e[n] = fir[n] + fir[L - n] and o[n] =
@@ -58,23 +59,27 @@
 // because a thread's own byte loads would wait on memory latency for
 // longer than the MMAs take.
 //
-// Factored mode (L >= 2048 with (L1, L2) from ops/pfb.py::_dft_factors;
-// F-engine L = 8192 -> (128, 64)).  One row's frame is strided by ninput
-// in the ADC, so a first kernel computes FIR rows for 32-input tiles with
-// coalesced reads and writes them contiguous per row to a float32 scratch
-// (the wrapper bounds it to 1 GB by running the spectra in chunks).  The
-// second kernel takes one row per block: frame (L floats) and the
-// twiddled [L1, L2] complex intermediate live in dynamic shared memory
-// (96 KB at L = 8192, above the 48 KB static limit, hence
-// cudaFuncSetAttribute); stage 1 is the inner DFT over n2 (8 x 8 register
-// tiles), then the complex twiddle, then stage 2 the outer DFT over n1
-// for k1 < L1/2 (4 x 4 complex register tiles); bin k = k1 * L2 + k2 is
-// written in place, so the TPU kernel's reorder outside (:415-416) has no
-// counterpart.  Bound: fp32 FMA, 3.2e6 FMA per row, plus the scratch
-// round trip (8 L bytes per row).
+// Factored mode (L >= 2048 with (L1, L2) from ops/pfb.py::_dft_factors,
+// L1 % 16 == 0 and L2 % 8 == 0; F-engine L = 8192 -> (128, 64)),
+// mma.sync.m16n8k8.f64 in both DFT stages.  One row's frame is strided by
+// ninput in the ADC, so a first kernel computes FIR rows with coalesced
+// reads (int8: 16 inputs of a sample to a 16-byte load, a 64 x 64 tile
+// transposed through shared memory) and writes them contiguous per row to
+// a float32 scratch (the wrapper bounds it to 1 GB by running the spectra
+// in chunks).  The scratch stays: a row's intermediate is 64 KB, so a block
+// holds one row, not the 16 inputs whose bytes share a 16-byte line of the
+// ADC; a block that reads its one input's bytes itself would pull every
+// line 16 times through L2 (88 GB a call).  The second kernel takes one row
+// per block, two blocks an SM: the row (cp.async) and the twiddled
+// [L1, L2] complex intermediate live in dynamic shared memory (106 KB at
+// L = 8192); stage 1 is the inner DFT over n2, halved by the real-input
+// mirror, then the complex twiddle, then stage 2 the outer DFT over n1 for
+// k1 < L1/2; bin k = k1 * L2 + k2 is written in place, so the TPU kernel's
+// reorder outside (:415-416) has no counterpart.  Bound: the FP64 tensor
+// rate, 5.2e6 flop per row (0.886e12 per 704 x 240 rows: 13.2 ms at 67
+// TFLOP/s), plus the scratch round trip (8 L bytes per row).
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -96,16 +101,10 @@ constexpr int MAX_SHARED = 232448;    // bytes one block may use
 // factored mode: FIR tile of the first kernel
 constexpr int F_TI = 32;
 constexpr int F_TN = 32;
-constexpr int F_SLICE = 32;           // n1 slice of the float64 accumulation
 
 __device__ __forceinline__ float bf16r(float v)
 {
     return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float madd(float a, float b, float c)
-{
-    return fmaf(a, b, c);
 }
 
 __device__ __forceinline__ double madd(double a, double b, double c)
@@ -483,10 +482,108 @@ pfb_fir_rows_kernel(const T* __restrict__ adc, long long st_t,
     }
 }
 
-// Factored mode, kernel 2: one (input, spectrum) row per block.
-//   inner [L2][2 L2]: (c2, s2) of (n2, k2) interleaved
+// Factored mode, kernel 1 for int8 ADC whose every 16 inputs of a sample
+// are 16 aligned bytes: a thread loads the 16 inputs of one sample with one
+// 16-byte load per tap (all taps in flight before the first sum) and forms
+// their 16 sums, each over k ascending in float64 as fir_sample does, so
+// the rows are the same bit for bit; the 64 x 64 tile is transposed
+// through shared memory and written 256 contiguous bytes per input.
+constexpr int V_TI = 64;
+constexpr int V_TN = 64;
+
+template <bool FAST>
+__global__ void __launch_bounds__(THREADS)
+pfb_fir_rows16_kernel(const int8_t* __restrict__ adc, long long st_t,
+                      int ninput, int s_first, int L, int ntap,
+                      const float* __restrict__ window,
+                      float* __restrict__ scratch, int chunk)
+{
+    __shared__ float tile[V_TI][V_TN + 1];
+    const int n0 = blockIdx.x * V_TN;
+    const int sl = blockIdx.y;
+    const int i0 = blockIdx.z * V_TI;
+    const int nn = threadIdx.x / (V_TI / 16);
+    const int iq = threadIdx.x % (V_TI / 16);
+    const int ig = i0 + 16 * iq;
+    double acc[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        acc[j] = 0.0;
+    }
+    if (ig < ninput) {
+        const int8_t* p = adc
+            + (static_cast<long long>(s_first + sl) * L + n0 + nn) * st_t
+            + ig;
+        const float* w = window + n0 + nn;
+#pragma unroll 4
+        for (int k = 0; k < ntap; ++k) {
+            const int4 v = *reinterpret_cast<const int4*>(
+                p + static_cast<long long>(k) * L * st_t);
+            const double wk = static_cast<double>(w[k * L]);
+            const int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const int x = static_cast<int8_t>(
+                    static_cast<unsigned>(words[j >> 2]) >> (8 * (j & 3)));
+                acc[j] = madd(static_cast<double>(x), wk, acc[j]);
+            }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const float v = static_cast<float>(acc[j]);
+        tile[16 * iq + j][nn] = FAST ? bf16r(v) : v;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < V_TI * V_TN; e += THREADS) {
+        const int ii = e / V_TN;
+        const int n = e % V_TN;
+        if (i0 + ii < ninput) {
+            scratch[(static_cast<long long>(i0 + ii) * chunk + sl) * L + n0
+                    + n] = tile[ii][n];
+        }
+    }
+}
+
+// Factored mode, kernel 2: one (input, spectrum) row per block, both DFT
+// stages on mma.sync.m16n8k8.f64.  Tables (float32, converted to double at
+// fragment load, as the row's values are):
+//   inner [L2 (n2)][L2]: column 2u = c2[n2][u], column 2u + 1 = s2[n2][u]
+//     for 0 < u < L2/2; column 0 = c2[n2][0], column 1 = c2[n2][L2/2];
+//     FAST: [L2][2 L2], columns 2u, 2u + 1 = (c2, s2)[n2][u] for every u
 //   tw    [L1][L2][2]: (twr, twi)
-//   outer [L1][L1/2][2]: (c1, s1)
+//   outer [2 (c1, s1)][L1 (n1)][L1/2 (k1)]
+// Stage 1, S[n1][k2] = sum_n2 fir[n1 + L1 n2] (c2 + i s2)[n2][k2], is the
+// product [n1] x [n2] x [columns above]: the input is real, so only
+// k2 <= L2/2 is computed and S[n1][L2 - k2] = conj S[n1][k2] (the tables
+// are mirror images but for entries that are zero to 1e-13).  FAST
+// computes every k2 from the full table instead: there T is rounded to
+// bf16, a sum of few-bit products can sit exactly on a rounding tie, and
+// the tie is then broken by those 1e-13 entries, which the mirror image
+// does not reproduce.  (cos, sin) of one k2 are neighbouring columns, so Re
+// and Im of S meet in one lane for the twiddle T = S (twr + i twi), formed
+// in double and stored as float32 (bf16-rounded when FAST) planes Tr, Ti
+// [n1][L2 + 8].  Stage 2, X[k2][k1] = sum_n1 T[n1][k2] (c1 - i s1)[n1][k1]
+// for k1 < L1/2, is four real products with A = T transposed (rows k2)
+// and B the outer table, a warp taking 2 x 2 MMA tiles.  Both row pitches
+// are 8 mod 32 floats, so the 32 lanes of an A fragment load (k index t,
+// row g) fall on banks 8 t + g, all distinct.  The packed row is assembled
+// in shared memory (bin k = k1 L2 + k2) and written out in 16-byte pieces.
+// Two 8-warp blocks an SM hide each other's barriers, copies and
+// epilogues.  Forms that ran slower on an H100 at the F-engine shape
+// (this kernel 22.1 ms as it stands): Karatsuba's three products with
+// operand sums formed in double; one 16-warp block an SM that walks over
+// rows and prefetches the next; T or the tables kept as doubles to save
+// the float32 -> float64 conversions at fragment load (the table
+// fragments come from L2, and their bytes cost more than the conversions).
+constexpr int F_PAD = 8;
+
+__host__ __device__ constexpr size_t factored_smem(int L1, int L2)
+{
+    return (static_cast<size_t>(L2) * (L1 + F_PAD)
+            + static_cast<size_t>(2) * L1 * (L2 + F_PAD)) * sizeof(float);
+}
+
 template <bool FAST>
 __global__ void __launch_bounds__(THREADS, 2)
 pfb_factored_kernel(const float* __restrict__ scratch, int chunk,
@@ -499,158 +596,179 @@ pfb_factored_kernel(const float* __restrict__ scratch, int chunk,
 {
     extern __shared__ float4 smem4[];
     const int L = L1 * L2;
-    float* fir = reinterpret_cast<float*>(smem4);   // fir[n1 + L1 * n2]
-    float* tws = fir + L;                           // [n1][k2][re, im]
+    const int P1 = L1 + F_PAD;
+    const int P2 = L2 + F_PAD;
+    float* fir = reinterpret_cast<float*>(smem4);   // fir[n2][P1], n1 inner
+    float* tre = fir + L2 * P1;                     // Tr[n1][P2]
+    float* tim = tre + L1 * P2;                     // Ti[n1][P2]
     const int sl = blockIdx.x;
     const int i = blockIdx.y;
     const int s = s_first + sl;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const int t = tid & 3;
+    constexpr int NWARP = THREADS / 32;
 
-    const float4* src = reinterpret_cast<const float4*>(
-        scratch + (static_cast<long long>(i) * chunk + sl) * L);
-    for (int q = threadIdx.x; q < L / 4; q += THREADS) {
-        smem4[q] = src[q];
+    {
+        const float* src = scratch
+            + (static_cast<long long>(i) * chunk + sl) * L;
+        for (int q = tid; q < L / 4; q += THREADS) {
+            const int n = 4 * q;
+            cp_async16(fir + (n / L1) * P1 + n % L1, src + n);
+        }
+        cp_async_commit();
+        cp_async_wait_but<0>();
+        __syncthreads();
     }
-    __syncthreads();
 
-    // stage 1: S[n1][k2] = sum_n2 fir[n1 + L1 n2] (c2 + i s2)[n2][k2],
-    // then T = S * (twr + i twi); tile = TM1 n1 x 4 k2 (8 float columns).
-    // FAST sums in float64, so that T is rounded to bf16 from (nearly) the
-    // exact value, as in the reference.
-    constexpr int TM1 = FAST ? 4 : 8;
-    using Acc = typename std::conditional<FAST, double, float>::type;
-    const int ncg1 = 2 * L2 / 8;
-    for (int t = threadIdx.x; t < (L1 / TM1) * ncg1; t += THREADS) {
-        const int cg = t % ncg1;
-        const int mg = t / ncg1;
-        Acc acc[TM1][8];
+    // stage 1: item = (m16 tile of n1, group of up to 8 n8 column tiles)
+    const int nmt1 = L1 / 16;
+    const int ncol = FAST ? 2 * L2 : L2;
+    const int nnt1 = ncol / 8;
+    const int ngrp = (nnt1 + 7) / 8;
+    for (int item = warp; item < nmt1 * ngrp; item += NWARP) {
+        const int mt = item % nmt1;
+        const int nt0 = (item / nmt1) * 8;
+        double acc[8][4];
 #pragma unroll
-        for (int m = 0; m < TM1; ++m) {
-#pragma unroll
-            for (int n = 0; n < 8; ++n) {
-                acc[m][n] = Acc(0);
-            }
-        }
-        for (int n2 = 0; n2 < L2; ++n2) {
-            const float* ap = fir + n2 * L1 + mg * TM1;
-            const float4* bp = reinterpret_cast<const float4*>(
-                inner + n2 * 2 * L2 + cg * 8);
-            const float4 b0 = __ldg(bp), b1 = __ldg(bp + 1);
-            float a[TM1];
-#pragma unroll
-            for (int m = 0; m < TM1; m += 4) {
-                const float4 a4 = *reinterpret_cast<const float4*>(ap + m);
-                a[m] = a4.x;
-                a[m + 1] = a4.y;
-                a[m + 2] = a4.z;
-                a[m + 3] = a4.w;
-            }
-            const float b[8] = {b0.x, b0.y, b0.z, b0.w,
-                                b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int m = 0; m < TM1; ++m) {
-#pragma unroll
-                for (int n = 0; n < 8; ++n) {
-                    acc[m][n] = madd(Acc(a[m]), Acc(b[n]), acc[m][n]);
-                }
-            }
-        }
-#pragma unroll
-        for (int m = 0; m < TM1; ++m) {
-            const int n1 = mg * TM1 + m;
-            float v[8];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int k2 = cg * 4 + j;
-                const float2 w = __ldg(
-                    reinterpret_cast<const float2*>(tw) + n1 * L2 + k2);
-                const Acc sr = acc[m][2 * j];
-                const Acc si = acc[m][2 * j + 1];
-                const Acc tr = sr * Acc(w.x) - si * Acc(w.y);
-                const Acc ti = sr * Acc(w.y) + si * Acc(w.x);
-                v[2 * j] = FAST ? bf16r(static_cast<float>(tr))
-                                : static_cast<float>(tr);
-                v[2 * j + 1] = FAST ? bf16r(static_cast<float>(ti))
-                                    : static_cast<float>(ti);
-            }
-            float4* dst = reinterpret_cast<float4*>(
-                tws + (n1 * L2 + cg * 4) * 2);
-            dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-            dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-        }
-    }
-    __syncthreads();
-
-    // stage 2: X[k1][k2] = sum_n1 (c1 - i s1)[n1][k1] T[n1][k2], k1 < L1/2;
-    // tile = 4 k1 x 4 k2
-    const int h = L1 / 2;
-    const int nkg2 = L2 / 4;
-    uint8_t* row = out + (static_cast<long long>(i) * nspec + s) * nchan;
-    for (int t = threadIdx.x; t < (h / 4) * nkg2; t += THREADS) {
-        const int kg2 = t % nkg2;
-        const int kg1 = t / nkg2;
-        double xr64[4][4], xi64[4][4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-                xr64[p][q] = 0.0;
-                xi64[p][q] = 0.0;
+                acc[n][q] = 0.0;
             }
         }
-        for (int b0 = 0; b0 < L1; b0 += F_SLICE) {
-            float xr[4][4], xi[4][4];
+        for (int ks = 0; ks < L2 / 8; ++ks) {
+            const float* ap = fir + (8 * ks + t) * P1 + 16 * mt + g;
+            const double a[4] = {ap[0], ap[8], ap[4 * P1], ap[4 * P1 + 8]};
+            const float* bp = inner + (8 * ks + t) * ncol + g;
 #pragma unroll
-            for (int p = 0; p < 4; ++p) {
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    xr[p][q] = 0.f;
-                    xi[p][q] = 0.f;
+            for (int n = 0; n < 8; ++n) {
+                if (nt0 + n < nnt1) {
+                    const double b[2] = {
+                        __ldg(bp + 8 * (nt0 + n)),
+                        __ldg(bp + 4 * ncol + 8 * (nt0 + n))};
+                    mma_m16n8k8_f64(acc[n], a, b);
                 }
             }
-            const int b1 = min(b0 + F_SLICE, L1);
-            for (int n1 = b0; n1 < b1; ++n1) {
-                const float4* op = reinterpret_cast<const float4*>(
-                    outer + (n1 * h + kg1 * 4) * 2);
-                const float4* tp = reinterpret_cast<const float4*>(
-                    tws + (n1 * L2 + kg2 * 4) * 2);
-                const float4 o0 = __ldg(op), o1 = __ldg(op + 1);
-                const float4 t0 = tp[0], t1 = tp[1];
-                const float c[4] = {o0.x, o0.z, o1.x, o1.z};
-                const float sn[4] = {o0.y, o0.w, o1.y, o1.w};
-                const float tr[4] = {t0.x, t0.z, t1.x, t1.z};
-                const float ti[4] = {t0.y, t0.w, t1.y, t1.w};
+        }
+        // twiddle; FAST rounds T to bf16 from the float64 value, as the
+        // reference does
+        auto emit = [&](int n1, int k2, double sr, double si) {
+            const float2 w = __ldg(
+                reinterpret_cast<const float2*>(tw) + n1 * L2 + k2);
+            const float tr = static_cast<float>(
+                sr * static_cast<double>(w.x) - si * static_cast<double>(w.y));
+            const float ti = static_cast<float>(
+                sr * static_cast<double>(w.y) + si * static_cast<double>(w.x));
+            tre[n1 * P2 + k2] = FAST ? bf16r(tr) : tr;
+            tim[n1 * P2 + k2] = FAST ? bf16r(ti) : ti;
+        };
 #pragma unroll
-                for (int p = 0; p < 4; ++p) {
+        for (int n = 0; n < 8; ++n) {
+            if (nt0 + n >= nnt1) {
+                continue;
+            }
+            const int u = 4 * (nt0 + n) + t;
 #pragma unroll
-                    for (int q = 0; q < 4; ++q) {
-                        xr[p][q] = fmaf(c[p], tr[q], xr[p][q]);
-                        xr[p][q] = fmaf(sn[p], ti[q], xr[p][q]);
-                        xi[p][q] = fmaf(c[p], ti[q], xi[p][q]);
-                        xi[p][q] = fmaf(-sn[p], tr[q], xi[p][q]);
+            for (int h = 0; h < 2; ++h) {
+                const int n1 = 16 * mt + g + 8 * h;
+                const double c0 = acc[n][2 * h], c1 = acc[n][2 * h + 1];
+                if (FAST) {
+                    emit(n1, u, c0, c1);
+                } else if (u == 0) {
+                    emit(n1, 0, c0, 0.0);
+                    emit(n1, L2 / 2, c1, 0.0);
+                } else {
+                    emit(n1, u, c0, c1);
+                    emit(n1, L2 - u, c0, -c1);
+                }
+            }
+        }
+    }
+    __syncthreads();
+
+    // stage 2: item = (pair of m16 tiles of k2, pair of n8 tiles of k1);
+    // rows of a ragged last k2 tile read the pad of Tr, Ti and are not
+    // stored.  Im X takes -s1, negated once per table fragment.
+    const int h1 = L1 / 2;
+    const int nmt2 = (L2 + 15) / 16;
+    const int nnt2 = h1 / 8;
+    const int nmp2 = (nmt2 + 1) / 2;
+    uint8_t* orow = reinterpret_cast<uint8_t*>(fir);   // fir is consumed
+    for (int item = warp; item < nmp2 * ((nnt2 + 1) / 2); item += NWARP) {
+        const int mt0 = (item % nmp2) * 2;
+        const int nt0 = (item / nmp2) * 2;
+        double xr[2][2][4], xi[2][2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    xr[m][n][q] = 0.0;
+                    xi[m][n][q] = 0.0;
+                }
+            }
+        }
+        for (int ks = 0; ks < L1 / 8; ++ks) {
+            double ar[2][4], ai[2][4];
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                // a tile past the last reads the last tile's rows again
+                const int mt = mt0 + m < nmt2 ? mt0 + m : mt0;
+                const int o = (8 * ks + t) * P2 + 16 * mt + g;
+                ar[m][0] = tre[o];
+                ar[m][1] = tre[o + 8];
+                ar[m][2] = tre[o + 4 * P2];
+                ar[m][3] = tre[o + 4 * P2 + 8];
+                ai[m][0] = tim[o];
+                ai[m][1] = tim[o + 8];
+                ai[m][2] = tim[o + 4 * P2];
+                ai[m][3] = tim[o + 4 * P2 + 8];
+            }
+            const float* bp = outer + (8 * ks + t) * h1 + g;
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                if (nt0 + n < nnt2) {
+                    const float* p = bp + 8 * (nt0 + n);
+                    const double bc[2] = {__ldg(p), __ldg(p + 4 * h1)};
+                    const double bs[2] = {__ldg(p + L1 * h1),
+                                          __ldg(p + L1 * h1 + 4 * h1)};
+                    const double ns[2] = {-bs[0], -bs[1]};
+#pragma unroll
+                    for (int m = 0; m < 2; ++m) {
+                        mma_m16n8k8_f64(xr[m][n], ar[m], bc);
+                        mma_m16n8k8_f64(xr[m][n], ai[m], bs);
+                        mma_m16n8k8_f64(xi[m][n], ai[m], bc);
+                        mma_m16n8k8_f64(xi[m][n], ar[m], ns);
                     }
                 }
             }
+        }
 #pragma unroll
-            for (int p = 0; p < 4; ++p) {
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
 #pragma unroll
                 for (int q = 0; q < 4; ++q) {
-                    xr64[p][q] += static_cast<double>(xr[p][q]);
-                    xi64[p][q] += static_cast<double>(xi[p][q]);
+                    const int k2 = 16 * (mt0 + m) + g + 8 * (q >> 1);
+                    const int k1 = 8 * (nt0 + n) + 2 * t + (q & 1);
+                    if (mt0 + m < nmt2 && nt0 + n < nnt2 && k2 < L2) {
+                        const int k = k1 * L2 + k2;
+                        const double sc = scale[k];
+                        orow[k] = static_cast<uint8_t>(pack_nibbles(
+                            xr[m][n][q] * sc, xi[m][n][q] * sc));
+                    }
                 }
             }
         }
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-            const int k1 = kg1 * 4 + p;
-            uint32_t word = 0;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const double sc = scale[k1 * L2 + kg2 * 4 + q];
-                word |= pack_nibbles(xr64[p][q] * sc, xi64[p][q] * sc)
-                        << (8 * q);
-            }
-            *reinterpret_cast<uint32_t*>(row + k1 * L2 + kg2 * 4) = word;
-        }
+    }
+    __syncthreads();
+    int4* dst = reinterpret_cast<int4*>(
+        out + (static_cast<long long>(i) * nspec + s) * nchan);
+    for (int q = tid; q < nchan / 16; q += THREADS) {
+        dst[q] = reinterpret_cast<const int4*>(orow)[q];
     }
 }
 
@@ -718,7 +836,7 @@ cudaError_t launch_factored(const void* adc, long long st_t, long long st_i,
                             cudaStream_t stream)
 {
     const int L = 2 * nchan;
-    const size_t smem = 3 * static_cast<size_t>(L) * sizeof(float);
+    const size_t smem = factored_smem(L1, L2);
     auto kernel = pfb_factored_kernel<FAST>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -726,13 +844,25 @@ cudaError_t launch_factored(const void* adc, long long st_t, long long st_i,
     if (err != cudaSuccess) {
         return err;
     }
+    // every 16 inputs of one sample are 16 aligned bytes
+    const bool rows16 = sizeof(T) == 1 && st_i == 1 && st_t % 16 == 0
+        && ninput % 16 == 0 && L % V_TN == 0
+        && reinterpret_cast<uintptr_t>(adc) % 16 == 0;
     for (int s_first = 0; s_first < nspec; s_first += chunk) {
         const int nsc = chunk < nspec - s_first ? chunk : nspec - s_first;
-        const dim3 grid1(L / F_TN, nsc, (ninput + F_TI - 1) / F_TI);
-        pfb_fir_rows_kernel<T, FAST><<<grid1, THREADS, 0, stream>>>(
-            static_cast<const T*>(adc), st_t, st_i, ninput, s_first, L, ntap,
-            static_cast<const float*>(window),
-            static_cast<float*>(scratch), chunk);
+        if (rows16) {
+            const dim3 grid1(L / V_TN, nsc, (ninput + V_TI - 1) / V_TI);
+            pfb_fir_rows16_kernel<FAST><<<grid1, THREADS, 0, stream>>>(
+                static_cast<const int8_t*>(adc), st_t, ninput, s_first, L,
+                ntap, static_cast<const float*>(window),
+                static_cast<float*>(scratch), chunk);
+        } else {
+            const dim3 grid1(L / F_TN, nsc, (ninput + F_TI - 1) / F_TI);
+            pfb_fir_rows_kernel<T, FAST><<<grid1, THREADS, 0, stream>>>(
+                static_cast<const T*>(adc), st_t, st_i, ninput, s_first, L,
+                ntap, static_cast<const float*>(window),
+                static_cast<float*>(scratch), chunk);
+        }
         err = cudaGetLastError();
         if (err != cudaSuccess) {
             return err;
@@ -803,7 +933,10 @@ extern "C" int cbd_pfb_factored(const void* adc, long long st_t,
     const int L = 2 * nchan;
     if (ninput <= 0 || nspec <= 0 || ntap <= 0 || L1 * L2 != L
         || L1 % 16 != 0 || L2 % 8 != 0 || L % F_TN != 0 || chunk <= 0
-        || chunk > 65535 || ninput > 65535) {
+        || chunk > 65535 || ninput > 65535
+        || factored_smem(L1, L2) > MAX_SHARED
+        || reinterpret_cast<uintptr_t>(scratch) % 16 != 0
+        || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const auto s = static_cast<cudaStream_t>(stream);

@@ -327,7 +327,8 @@ def channelize_pack_imajor(adc: torch.Tensor, window, cfg,
 
     One path for every ``cfg.pfb_fft_impl`` and ``pfb_engine`` of the JAX
     package: CPU tensors take the float64 plain version, CUDA tensors the
-    kernel (direct DFT below L = 2048, factored above).
+    kernel (factored DFT where L = 2*nchan has a factor pair, else the
+    direct DFT up to nchan = 559; see :mod:`.pfb_fused`).
     ``cfg.pfb_precision == "bf16"`` selects the bf16-operand DFT.
     """
     from .pfb_fused import pfb_quantize_packed

@@ -5,11 +5,16 @@ pfb_quantize_packed_pallas``).
 :func:`pfb_quantize_packed` takes ADC [ntime, ninput] (float32 or int8,
 any strides) and returns packed uint8 [ninput, nspec, nchan].  CPU tensors
 take the float64 plain version :func:`..pfb.pfb_quantize_packed_ref`;
-CUDA tensors launch ``kernels/csrc/pfb_quantize.cu``: :func:`pfb_direct`
-below L = 2*nchan = 2048 (the pipeline scale, L = 384) and
-:func:`pfb_factored` where :func:`..pfb._dft_factors` gives a factor pair
-(the F-engine scale, L = 8192 -> (128, 64)).  Tables are built here once
-per (nchan, precision, device) in the layout the kernel reads.
+CUDA tensors launch ``kernels/csrc/pfb_quantize.cu``: :func:`pfb_factored`
+where :func:`..pfb._dft_factors` gives a factor pair the kernel tiles
+(the F-engine scale, L = 2*nchan = 8192 -> (128, 64)), else
+:func:`pfb_direct` while the folded FIR rows of one 16-input tile fit
+shared memory (``direct_shared_bytes(L) <= MAX_SHARED``: nchan <=
+:func:`direct_max_nchan` = 559; the pipeline scale is L = 384).  A length
+neither kernel takes (nchan 560-1023, or L >= 2048 without a usable factor
+pair) raises ``ValueError`` for a CUDA tensor; the CPU path answers every
+length.  Tables are built here once per (nchan, precision, device) in the
+layout the kernel reads.
 
 The TPU kernel's ``ti``/``ts`` tiles, ``paired``, ``fir_impl`` and
 ``pipeline_chunks`` are Mosaic scheduling choices with identical output
@@ -33,8 +38,11 @@ DIRECT_TI, DIRECT_MT, DIRECT_KS, DIRECT_CPASS, DIRECT_BP = 16, 3, 8, 192, 200
 DIRECT_NSTAGE = 4
 #: shared memory one block may use (H100: 227 KB)
 MAX_SHARED = 232448
-#: largest float32 FIR scratch of one factored launch chunk
+#: largest float32 FIR scratch of one launch pair of the factored mode
+#: (FIR-rows kernel, then the DFT kernel that reads the rows back)
 FACTORED_SCRATCH_BYTES = 1 << 30
+#: pad floats per staged row of the factored DFT kernel
+FACTORED_PAD = 8
 
 
 def _pad(n: int, m: int) -> int:
@@ -48,6 +56,22 @@ def direct_shared_bytes(L: int, mt: int = 1) -> int:
     kpad = _pad(L // 2 + 1, DIRECT_KS)
     return (2 * kpad * (DIRECT_TI * mt + 4) * 8
             + DIRECT_NSTAGE * 2 * DIRECT_KS * DIRECT_BP * 4)
+
+
+def direct_max_nchan() -> int:
+    """The largest nchan whose folded FIR rows (one spectrum of one
+    16-input tile) fit the direct kernel's shared memory."""
+    nchan = 1
+    while direct_shared_bytes(2 * (nchan + 1)) <= MAX_SHARED:
+        nchan += 1
+    return nchan
+
+
+def factored_shared_bytes(L1: int, L2: int) -> int:
+    """Dynamic shared memory of the factored DFT kernel: one FIR row as
+    [L2][L1 + 8] floats and the twiddled intermediate's two planes
+    [L1][L2 + 8]."""
+    return (L2 * (L1 + FACTORED_PAD) + 2 * L1 * (L2 + FACTORED_PAD)) * 4
 
 
 def direct_table_ref(nchan: int) -> np.ndarray:
@@ -89,19 +113,48 @@ def _direct_table(nchan: int, fast: bool, device: str) -> torch.Tensor:
     return (pfb.bf16_round(t) if fast else t).to(device)
 
 
+def factored_tables_ref(nchan: int, half: bool = True
+                        ) -> tuple[np.ndarray, ...]:
+    """The factored kernel's tables (f32) from
+    :func:`..pfb._rdft_factored_tables`:
+
+    - inner [L2 (n2), L2]: the half of the inner DFT a real input needs,
+      (cos, sin) of one k2 in neighbouring columns: column 2u = c2[:, u] and
+      column 2u + 1 = s2[:, u] for 0 < u < L2/2; columns 0 and 1 are the two
+      real bins, c2[:, 0] and c2[:, L2/2].  ``half=False`` (the kernel's
+      bf16 mode, which does not mirror): [L2, 2 L2], every k2;
+    - twiddle [L1, L2, 2] = (twr, twi);
+    - outer [2, L1 (n1), L1/2 (k1)] = (c1, s1).
+    """
+    (c2, s2, twr, twi, c1, s1), (_, L2) = pfb._rdft_factored_tables(nchan)
+    if half:
+        inner = np.stack([c2[:, :L2 // 2], s2[:, :L2 // 2]], -1)
+        inner[:, 0, 1] = c2[:, L2 // 2]
+    else:
+        inner = np.stack([c2, s2], -1)
+    return (np.ascontiguousarray(inner.reshape(L2, -1)),
+            np.ascontiguousarray(np.stack([twr, twi], -1)),
+            np.ascontiguousarray(np.stack([c1, s1])))
+
+
 @functools.lru_cache(maxsize=8)
 def _factored_tables(nchan: int, fast: bool, device: str):
-    """(inner [L2, 2*L2] = (c2, s2) interleaved, twiddle [L1, L2, 2] =
-    (twr, twi), outer [L1, L1/2, 2] = (c1, s1)), f32; the inner and outer
+    """:func:`factored_tables_ref` on ``device``; the inner and outer
     tables bf16-rounded when ``fast`` (the twiddle is an elementwise
     float32 product in the TPU kernel too)."""
-    (c2, s2, twr, twi, c1, s1), _ = pfb._rdft_factored_tables(nchan)
-    inner = torch.from_numpy(np.stack([c2, s2], -1).reshape(c2.shape[0], -1))
-    tw = torch.from_numpy(np.stack([twr, twi], -1))
-    outer = torch.from_numpy(np.stack([c1, s1], -1))
+    inner, tw, outer = (torch.from_numpy(t)
+                        for t in factored_tables_ref(nchan, half=not fast))
     if fast:
         inner, outer = pfb.bf16_round(inner), pfb.bf16_round(outer)
-    return tuple(t.contiguous().to(device) for t in (inner, tw, outer))
+    return tuple(t.to(device) for t in (inner, tw, outer))
+
+
+def factored_chunk(ninput: int, nspec: int, L: int) -> int:
+    """Spectra per launch pair of the factored mode: as many as keep the
+    float32 FIR scratch [ninput, chunk, L] within
+    ``FACTORED_SCRATCH_BYTES`` (and the grid within 65535)."""
+    return max(1, min(nspec, 65535,
+                      FACTORED_SCRATCH_BYTES // (ninput * L * 4)))
 
 
 def _check_adc(x: torch.Tensor, window: torch.Tensor, nchan: int,
@@ -126,13 +179,17 @@ def _common_args(x, window, scale, nchan, ntap):
 
 def pfb_direct(x: torch.Tensor, window, nchan: int, ntap: int, scale,
                fast: bool = False) -> torch.Tensor:
-    """Launch the direct-DFT kernel on CUDA tensors (no plain path)."""
+    """Launch the direct-DFT kernel on CUDA tensors (no plain path).
+    Takes nchan <= :func:`direct_max_nchan` (559): the folded FIR rows of
+    a block live in shared memory; raises ``ValueError`` above."""
     L = 2 * nchan
     if pfb._dft_factors(L) is not None:
         raise ValueError(f"L = {L} takes the factored kernel")
     if direct_shared_bytes(L) > MAX_SHARED:
-        raise ValueError(f"L = {L} is too long for the direct kernel's "
-                         "shared-memory FIR tile")
+        raise ValueError(
+            f"L = {L} is too long for the direct kernel's shared-memory "
+            f"FIR tile ({direct_shared_bytes(L)} > {MAX_SHARED} bytes; "
+            f"nchan <= {direct_max_nchan()})")
     dev, w, sc, nspec, out = _common_args(x, window, scale, nchan, ntap)
     if dev.type != "cuda":
         raise ValueError("pfb_direct launches a CUDA kernel")
@@ -148,18 +205,24 @@ def pfb_direct(x: torch.Tensor, window, nchan: int, ntap: int, scale,
 
 def pfb_factored(x: torch.Tensor, window, nchan: int, ntap: int, scale,
                  fast: bool = False) -> torch.Tensor:
-    """Launch the factored-DFT kernels on CUDA tensors (no plain path)."""
+    """Launch the factored-DFT kernels on CUDA tensors (no plain path).
+    Takes the factor pairs (L1, L2) of :func:`..pfb._dft_factors` with
+    L1 % 16 == 0 and L2 % 8 == 0 whose row fits shared memory
+    (:func:`factored_shared_bytes`); raises ``ValueError`` otherwise."""
     L = 2 * nchan
     factors = pfb._dft_factors(L)
     if factors is None:
         raise ValueError(f"L = {L} has no factored DFT")
     L1, L2 = factors
+    if L1 % 16 or L2 % 8 or factored_shared_bytes(L1, L2) > MAX_SHARED:
+        raise ValueError(
+            f"L = {L} = {L1} x {L2}: the factored kernel takes L1 % 16 == 0 "
+            f"and L2 % 8 == 0 within {MAX_SHARED} bytes of shared memory")
     dev, w, sc, nspec, out = _common_args(x, window, scale, nchan, ntap)
     if dev.type != "cuda":
         raise ValueError("pfb_factored launches a CUDA kernel")
     ninput = x.shape[1]
-    chunk = max(1, min(nspec, 65535,
-                       FACTORED_SCRATCH_BYTES // (ninput * L * 4)))
+    chunk = factored_chunk(ninput, nspec, L)
     scratch = torch.empty((ninput, chunk, L), dtype=torch.float32,
                           device=out.device)
     inner, tw, outer = _factored_tables(nchan, fast, str(dev))
@@ -182,6 +245,12 @@ def pfb_quantize_packed(x: torch.Tensor, window, nchan: int, ntap: int,
       scale: scalar or per-channel [nchan] requant gain.
       fast: bf16 DFT operands with float32 accumulation (the JAX
         ``fast=True``, ``pfb_precision="bf16"``) instead of float32.
+
+    A CUDA tensor launches the factored kernel where L = 2*nchan has a
+    factor pair, else the direct kernel, and raises ``ValueError`` for a
+    length neither takes (nchan 560-1023: ``direct_shared_bytes(L) >
+    MAX_SHARED``; L >= 2048 without a factor pair with L1 % 16 == 0 and
+    L2 % 8 == 0).  A CPU tensor takes the plain version at every length.
     """
     if x.device.type == "cpu":
         w = torch.as_tensor(window)

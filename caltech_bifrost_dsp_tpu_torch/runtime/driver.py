@@ -239,6 +239,10 @@ class OutputCommandBlock(CommandBlock):
                                 initial_val=dest_port)
         self.define_command_key("dest_file", type=str, initial_val="")
         self.define_command_key("max_mbps", type=int, initial_val=-1)
+        if hasattr(sink_obj, "autos_path"):
+            # "" disables, else a directory for the sink's autos_<id>.npy
+            self.define_command_key("write_autos", type=str,
+                                    initial_val="")
         self._dest_fh = None
 
     def apply_pending(self):
@@ -254,6 +258,10 @@ class OutputCommandBlock(CommandBlock):
             self.sink.send = None
 
     def _apply_dest(self):
+        if "write_autos" in self.command_vals and \
+                hasattr(self.sink, "autos_path"):
+            self.sink.autos_path = (self.command_vals["write_autos"]
+                                    or None)
         ip = self.command_vals["dest_ip"]
         port = self.command_vals["dest_port"]
         dest_file = self.command_vals["dest_file"]

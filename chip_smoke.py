@@ -44,10 +44,12 @@ selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
 ``corr_rows``, over the golden stream through their wrappers and holds
 their slow sums to the plain slow dump.
 
-Beside the two tensor-core kernels it times a library contraction as a
+Beside the four tensor-core kernels it times a library contraction as a
 yardstick, on earlier lines and labelled "contraction only":
 ``torch._int_mm`` on unpacked int8 planes beside the correlator, float32 and
-float64 ``torch.matmul`` of the DFT's shape beside the direct channelizer.
+float64 ``torch.matmul`` of the DFT's shape beside the direct channelizer,
+a complex64 ``torch.bmm`` on unpacked voltages beside the beamformer and
+``torch.fft.rfft`` over float32 rows beside the factored channelizer.
 They leave out the unpack, the FIR, the epilogue and the requantizer, so
 ``library_ms`` stays null; the port never calls them.
 
@@ -171,9 +173,9 @@ DEFAULT_CORR = "corr_acc_cached" if UNPACK_CACHE_DEFAULT else "corr_acc"
 #: function on its inputs (4+4-bit packed bytes in, or a fused chain out)
 NO_LIBRARY = None
 #: the card's published peaks (H100 SXM data sheet, dense): memory rate,
-#: int8 tensor-core rate, float32 rate outside the tensor cores
+#: int8 and bf16 tensor-core rates, float32 rate outside the tensor cores
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 #: the FX operating point: int8 ADC, one slow dump after three windows
 FX_CFG = LWA352.replace(adc_dtype="int8", acc_len_slow=7200)
 FENGINE_NCHAN, FENGINE_NSPEC = 4096, 240
@@ -322,6 +324,7 @@ def phase_kernels(dev, card: str, results: dict) -> None:
     del fast, slow, state
 
     err = 0.0
+    rel = {}
     for kind in ("integer", "float"):
         shape = (nchan, cfg.nbeam, ni)
         if kind == "integer":
@@ -343,17 +346,45 @@ def phase_kernels(dev, card: str, results: dict) -> None:
         else:
             check(power_close(v, wv), "VLBI (float gains) vs plain")
         err = max(err, max_abs(p, wp), max_abs(v, wv))
-        rel = max_abs(p, wp) / float(wp.abs().max())
+        rel[kind] = (max_abs(p, wp) / float(wp.abs().max()),
+                     max_abs(v, wv) / float(wv.abs().max()))
         print(f"beamform_products {kind} gains: power max|err|/max "
-              f"{rel:.3e}, VLBI max|err| {max_abs(v, wv):.3e}", flush=True)
+              f"{rel[kind][0]:.3e}, VLBI max|err| {max_abs(v, wv):.3e}",
+              flush=True)
+    # gains changed in place take effect at the next call: doubled gains,
+    # four times the power (exact: a factor of two moves no rounding)
+    for plane in gains:
+        plane.mul_(2.0)
+    p2, v2 = bf.beamform_products(packed, gains, cfg.ntime_sum)
+    torch.cuda.synchronize()
+    check(torch.equal(p2, 4.0 * p) and torch.equal(v2, 2.0 * v),
+          "beam products did not follow gains changed in place")
+    for plane in gains:
+        plane.mul_(0.5)
+    del p2, v2
+    print("beamform_products: gains doubled in place -> power x 4, VLBI x 2 "
+          "exactly (no stale split operand)", flush=True)
+    beam_cancellation(dev, g)
+    nbyte = (packed.numel() + 8 * gains.real.numel() + 4 * p.numel()
+             + 4 * v.numel())
+    nop = 8 * nchan * ntime * cfg.nbeam * ni
     results["beamform_products"].update(
-        **bound(packed.numel() + 8 * gains.real.numel() + 4 * p.numel()
-                + 4 * v.numel(), 8 * nchan * ntime * cfg.nbeam * ni, "fp32"),
-        max_abs_err=err,
+        **bound(nbyte, nop, "bf16"), max_abs_err=err,
         ms=cuda_ms(lambda: bf.beamform_products(packed, gains,
                                                 cfg.ntime_sum), 10),
         plain_ms=cuda_ms(lambda: bf.beamform_products_ref(
             xc, gains, cfg.ntime_sum), 3))
+    r = results["beamform_products"]
+    print(f"[{card}] beamform_products on the bf16 tensor cores, "
+          f"{bf.SPLIT_TERMS} bf16 terms per float32 gain: kernel "
+          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; largest error "
+          f"against float64 over max|truth|: power {rel['float'][0]:.3e}, "
+          f"VLBI {rel['float'][1]:.3e}; bound by bytes "
+          f"{nbyte / HBM_BYTES_S * 1e3:.3f} ms, by operations at the bf16 "
+          f"tensor rate {nop / PEAK_OPS_S['bf16'] * 1e3:.3f} ms (at the "
+          f"float32 rate, the bound of the FMA kernel this one replaced: "
+          f"{nop / PEAK_OPS_S['fp32'] * 1e3:.3f} ms)", flush=True)
+    bmm_yardstick(card, packed, gains)
     for name in ("corr_acc", "corr_acc_cached", "beamform_products",
                  "subsel_gather"):
         print_kernel(card, name, results[name], "per call at the production "
@@ -439,6 +470,61 @@ def int_mm_yardstick(card: str, packed, nchan: int = 4) -> None:
           f"products of [704, 2400] x [2400, 704] int8 per channel, timed "
           f"on {nchan} channels and scaled to {packed.shape[1]}: {ms:.3f} "
           f"ms (no unpack, full matrix, no epilogue)", flush=True)
+
+
+def beam_cancellation(dev, g) -> None:
+    """Y beams nearly equal to X beams times i, so Re(XY*) cancels to ~0
+    while XX is large: power and VLBI must still pass the beam gate against
+    the float64 plain version."""
+    ntime, nchan, ni, nbeam, ntime_sum = 2400, 4, 704, 32, 24
+    packed = torch.randint(0, 256, (ntime, nchan, ni), generator=g,
+                           device=dev, dtype=torch.uint8)
+    gr, gi = (torch.randn((nchan, nbeam, ni), generator=g, device=dev)
+              for _ in range(2))
+    gr[:, 1::2] = -gi[:, 0::2] + 1e-3 * torch.randn(
+        (nchan, nbeam // 2, ni), generator=g, device=dev)
+    gi[:, 1::2] = gr[:, 0::2] + 1e-3 * torch.randn(
+        (nchan, nbeam // 2, ni), generator=g, device=dev)
+    gains = bf.BeamGains(gr, gi)
+    p, v = bf.beamform_products(packed, gains, ntime_sum)
+    wp, wv = bf.beamform_products_ref(chan_major(packed, "tci"), gains,
+                                      ntime_sum)
+    torch.cuda.synchronize()
+    check(power_close(p, wp) and power_close(v, wv),
+          "beam products with cancelling XY* vs plain")
+    cross = float(wp[..., 2].abs().max() / wp[..., 0].abs().max())
+    print(f"beamform_products, Y = i X + 1e-3 noise (max|Re XY*| / max XX "
+          f"= {cross:.1e}): power max|err|/max "
+          f"{max_abs(p, wp) / float(wp.abs().max()):.3e}, within the gate",
+          flush=True)
+
+
+def bmm_yardstick(card: str, packed, gains, part: int = 4) -> None:
+    """Contraction only: one complex64 ``torch.bmm`` [c, 32, 704] x
+    [c, 704, 2400] on voltages unpacked beforehand, timed on 1 / ``part`` of
+    the channels and scaled.  No unpack, no power integration, no VLBI."""
+    nchan = packed.shape[1]
+    n = nchan // part
+    xr, xi = bf.unpack(packed[:, :n])
+    x = torch.complex(xr.float(), xi.float()).permute(1, 2, 0).contiguous()
+    w = torch.complex(gains.real[:n], gains.imag[:n])
+    ms = cuda_ms(lambda: torch.bmm(w, x), 5) * nchan / n
+    print(f"[{card}] yardstick, contraction only: torch.bmm complex64 "
+          f"[{nchan}, {w.shape[1]}, {w.shape[2]}] x [{nchan}, {x.shape[1]}, "
+          f"{x.shape[2]}], timed on {n} channels and scaled: {ms:.3f} ms "
+          f"(voltages unpacked beforehand, no power, no VLBI)", flush=True)
+
+
+def rfft_yardstick(card: str, nrow: int, L: int, part: int = 8) -> None:
+    """Transform only: ``torch.fft.rfft`` over float32 rows of length
+    ``L``, timed on 1 / ``part`` of the rows and scaled.  No FIR, no
+    requantizer, and an FFT's operation count, not a matrix DFT's."""
+    n = nrow // part
+    rows = torch.randn((n, L), device="cuda", dtype=torch.float32)
+    ms = cuda_ms(lambda: torch.fft.rfft(rows), 5) * nrow / n
+    print(f"[{card}] yardstick, transform only: torch.fft.rfft float32 "
+          f"[{nrow}, {L}], timed on {n} rows and scaled: {ms:.3f} ms (no "
+          f"FIR, no requantizer)", flush=True)
 
 
 def matmul_yardstick(card: str, nrow: int, L: int, part: int = 8) -> None:
@@ -739,6 +825,19 @@ def run_fengine(dev, card: str, results: dict) -> dict:
     what = f"[F-engine {FENGINE_NCHAN}c x {cfg.ninput} x {FENGINE_NSPEC}]"
     ntol = pfb_gate(packed, adc, window, FENGINE_NCHAN, ntap, qs, what=what)
     code_histogram(packed, what)
+    # float32 ADC of equal values (64 inputs, a strided view) gives the
+    # int8 run's bytes; bf16 operands pass their own gate at full size
+    sub = pfb_fused.pfb_factored(adc[:, :64].float(), window, FENGINE_NCHAN,
+                                 ntap, qs)
+    check(torch.equal(sub, packed[:64]),
+          "F-engine: float32 ADC bytes != int8 ADC bytes")
+    del sub
+    fast = pfb_fused.pfb_factored(adc, window, FENGINE_NCHAN, ntap, qs,
+                                  fast=True)
+    torch.cuda.synchronize()
+    pfb_gate(fast, adc, window, FENGINE_NCHAN, ntap, qs, fast=True,
+             what=what + " bf16")
+    del fast
     ms = cuda_ms(lambda: pfb_fused.pfb_factored(adc, window, FENGINE_NCHAN,
                                                 ntap, qs), 3)
     plain_ms = cuda_ms(lambda: pfb.pfb_quantize_packed_ref(
@@ -755,6 +854,8 @@ def run_fengine(dev, card: str, results: dict) -> dict:
           f"per input "
           f"(F-engine bar fs = {cfg.fs_hz / 1e6:.0f} Msamples/s: "
           f"{msps / (cfg.fs_hz / 1e6):.3f}x)", flush=True)
+    del adc, packed
+    rfft_yardstick(card, cfg.ninput * FENGINE_NSPEC, L)
     return counts
 
 

@@ -48,6 +48,18 @@ inline float4 make_float4(float x, float y, float z, float w)
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+// byte n of the result is byte (selector nibble n) of the pool {x, y}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s)
+{
+    const unsigned long long pool =
+        (static_cast<unsigned long long>(y) << 32) | x;
+    unsigned r = 0;
+    for (int n = 0; n < 4; ++n) {
+        r |= static_cast<unsigned>((pool >> (8 * ((s >> (4 * n)) & 7)))
+                                   & 0xFF) << (8 * n);
+    }
+    return r;
+}
 using std::max;
 using std::min;
 
@@ -212,6 +224,66 @@ inline void mma_m16n8k8_f64(double (&c)[4], const double (&a)[4],
         c[e] = sum;
     }
     block->warp[w]->arrive_and_wait();
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (two bf16 along k to
+// a register, the lower k in the low half):
+//   A[row][k]: lane (row % 8) * 4 + (k % 8) / 2, register row / 8 +
+//              2 * (k / 8), half k % 2
+//   B[k][col]: lane col * 4 + (k % 8) / 2, register k / 8, half k % 2
+//   C[row][col]: as above
+// Each product is exact in double; the sum is rounded to float once.
+inline float bf16_half(int reg, int half)
+{
+    const uint32_t u = (static_cast<uint32_t>(reg) >> (16 * half)) << 16;
+    float v;
+    std::memcpy(&v, &u, 4);
+    return v;
+}
+
+inline void mma_m16n8k16_bf16(float (&c)[4], const uint32_t (&a)[4],
+                              const uint32_t (&b)[2])
+{
+    const int tid = linear_tid();
+    const int lane = tid % WARP;
+    const int w = tid / WARP;
+    int* mine = block->frag.data() + static_cast<size_t>(tid) * 6;
+    for (int r = 0; r < 4; ++r) mine[r] = static_cast<int>(a[r]);
+    for (int r = 0; r < 2; ++r) mine[4 + r] = static_cast<int>(b[r]);
+    block->warp[w]->arrive_and_wait();
+    const int* regs = block->frag.data() + static_cast<size_t>(w) * WARP * 6;
+    const int g = lane / 4, t = lane % 4;
+    for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e / 2);
+        const int col = 2 * t + e % 2;
+        double sum = c[e];
+        for (int k = 0; k < 16; ++k) {
+            const int la = (row % 8) * 4 + (k % 8) / 2;
+            const int ra = row / 8 + 2 * (k / 8);
+            const int lb = col * 4 + (k % 8) / 2;
+            const int rb = 4 + k / 8;
+            sum += static_cast<double>(bf16_half(regs[la * 6 + ra], k % 2))
+                   * bf16_half(regs[lb * 6 + rb], k % 2);
+        }
+        c[e] = static_cast<float>(sum);
+    }
+    block->warp[w]->arrive_and_wait();
+}
+
+// sub.rn.bf16x2: a - b in both bf16 halves (the port subtracts small
+// integers, whose difference is exact; round to nearest even otherwise)
+inline uint32_t sub_bf16x2(uint32_t a, uint32_t b)
+{
+    uint32_t d = 0;
+    for (int half = 0; half < 2; ++half) {
+        const float v = bf16_half(static_cast<int>(a), half)
+                        - bf16_half(static_cast<int>(b), half);
+        uint32_t u;
+        std::memcpy(&u, &v, 4);
+        u += 0x7FFFu + ((u >> 16) & 1u);
+        d |= (u >> 16) << (16 * half);
+    }
+    return d;
 }
 
 inline void cp_async16(void* shared, const void* global)

@@ -1,7 +1,8 @@
-"""``csrc/corr_acc.cu`` and ``csrc/pfb_quantize.cu`` compiled with g++
-against ``tests/cuda_stub/cuda_runtime.h`` and run on CPU arrays through
-their ``extern "C"`` launchers (the correlator's three, the direct
-channelizer's one), against the plain versions.
+"""``csrc/corr_acc.cu``, ``csrc/pfb_quantize.cu`` and
+``csrc/beamform_products.cu`` compiled with g++ against
+``tests/cuda_stub/cuda_runtime.h`` and run on CPU arrays through their
+``extern "C"`` launchers (the correlator's three, the channelizer's two,
+the beamformer's one), against the plain versions.
 
 The stub runs a block's threads as host threads and supplies the int8
 tensor-core instruction lane by lane from the PTX fragment layout, so this
@@ -13,7 +14,12 @@ one input is structured (a distinct value per input and per time sample)
 so that a wrong map cannot hide in noise, and one is all 0x88 (both nibbles
 -8, the widest products).  The direct channelizer (FP64 tensor-core MMA,
 folded real DFT) runs at ragged spectra and inputs, one and two channel
-passes, int8 and float32 ADC, both precisions, under the packed-byte gate.
+passes, int8 and float32 ADC, both precisions, under the packed-byte gate;
+the factored channelizer (both DFT stages on the FP64 MMA, FIR fused in)
+at 1024 channels the same way.  The beamformer (bf16 MMA from a three-term
+split of the gains) runs in both layouts at ragged inputs, beams, time
+tiles and integration lengths against the float64 plain version, and
+bit-exactly with integer gains.
 Skips without g++.
 """
 
@@ -27,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
 from caltech_bifrost_dsp_tpu_torch.ops import corr_blk as cb
 from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import (cache_shape,
@@ -58,7 +65,7 @@ def lib(tmp_path_factory):
         pytest.skip("needs g++")
     work = tmp_path_factory.mktemp("emulation")
     srcs = []
-    for stem in ("corr_acc", "pfb_quantize"):
+    for stem in ("corr_acc", "pfb_quantize", "beamform_products"):
         srcs.append(work / f"{stem}.cpp")
         srcs[-1].write_text(host_source(
             (_build.CSRC / f"{stem}.cu").read_text()))
@@ -67,7 +74,8 @@ def lib(tmp_path_factory):
                     f"-I{STUB}", "-o", str(so), *map(str, srcs)], check=True)
     lib = ctypes.CDLL(str(so))
     for name in ("cbd_corr_acc", "cbd_corr_acc_cached", "cbd_corr_blk",
-                 "cbd_pfb_direct"):
+                 "cbd_pfb_direct", "cbd_pfb_factored",
+                 "cbd_beamform_products"):
         fn = getattr(lib, name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -213,3 +221,156 @@ def test_pfb_direct_emulated_passes_the_gate(lib, nchan, nspec, ninput, dtype,
         torch.from_numpy(out), x, w, nchan, ntap, torch.from_numpy(scale),
         fast)
     assert tolerated <= 2
+
+
+
+@pytest.mark.parametrize(
+    "nchan,nspec,ninput,dtype,fast,per_chan,strided,chunk", [
+        (1024, 2, 3, "int8", False, False, False, 2),
+        (1024, 1, 16, "int8", False, True, False, 1),
+        (1024, 1, 2, "float32", False, True, True, 1),
+        (1024, 2, 2, "int8", True, False, True, 1),
+        (1024, 1, 3, "float32", True, True, False, 1),
+        (8192, 1, 1, "int8", False, False, False, 1)])
+def test_pfb_factored_emulated_passes_the_gate(lib, nchan, nspec, ninput,
+                                               dtype, fast, per_chan,
+                                               strided, chunk):
+    """``cbd_pfb_factored`` at 1024 channels (L = 2048 = 64 x 32) on CPU
+    arrays against the float64 plain version under the packed-byte gate:
+    both stages on the FP64 MMA, the mirrored half of stage 1, the bf16
+    rounding of the twiddled intermediate, a strided ADC (every second
+    column of a wider array), per-channel scale, spectra run in chunks of
+    the FIR scratch, and with 16 int8 inputs the FIR kernel of 16-byte
+    loads.  8192 channels (128 x 128) take two groups of stage-1 column
+    tiles a warp."""
+    ntap = 4
+    L1, L2 = pfb._dft_factors(2 * nchan)
+    rng = np.random.RandomState(nspec * 10 + ninput)
+    shape = ((nspec + ntap - 1) * 2 * nchan, ninput * (2 if strided else 1))
+    if dtype == "int8":
+        wide = rng.randint(-90, 91, shape).astype(np.int8)
+    else:
+        wide = (rng.randn(*shape) * 40).astype(np.float32)
+    adc = wide[:, ::2] if strided else wide
+    window = pfb.pfb_window(nchan, ntap)
+    x = torch.from_numpy(np.ascontiguousarray(adc))
+    w = torch.from_numpy(window)
+    re, _ = pfb.pfb_prequant_ref(x, w, nchan, ntap, 1.0)
+    scale = np.full(nchan, 2.5 / float(re.std()), np.float32)
+    if per_chan:
+        scale *= rng.uniform(0.7, 1.3, nchan).astype(np.float32)
+    tables = [torch.from_numpy(t) for t in
+              pfb_fused.factored_tables_ref(nchan, half=not fast)]
+    if fast:
+        tables[0], tables[2] = (pfb.bf16_round(tables[0]),
+                                pfb.bf16_round(tables[2]))
+    inner, tw, outer = (np.ascontiguousarray(t.numpy()) for t in tables)
+    scratch = np.full((ninput, chunk, 2 * nchan), np.nan, np.float32)
+    out = np.full((ninput, nspec, nchan), 0xAA, np.uint8)
+    rc = lib.cbd_pfb_factored(
+        ptr(adc), adc.strides[0] // adc.itemsize,
+        adc.strides[1] // adc.itemsize, int(dtype == "int8"), ninput, nspec,
+        nchan, ntap, L1, L2, ptr(window), ptr(inner), ptr(tw), ptr(outer),
+        ptr(scale), int(fast), ptr(scratch), chunk, ptr(out), None)
+    assert rc == 0
+    tolerated = pfb.assert_packed_matches_ref(
+        torch.from_numpy(out), x, w, nchan, ntap, torch.from_numpy(scale),
+        fast)
+    assert tolerated <= 2
+
+def close(got: np.ndarray, want: torch.Tensor) -> None:
+    """The reference's beam gate: rtol 1e-4, atol 1e-4 * max|truth|."""
+    want = want.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+
+
+# ragged inputs and two beams; every row tile, a padded cti block; a ragged
+# last time tile (tt = 192); ragged inputs over two chunks with an
+# integration length that is no multiple of the 8-sample MMA tile
+@pytest.mark.parametrize(
+    "ntime,nchan,ni,nbeam,ntime_sum,layout,products,integer", [
+        (48, 2, 20, 2, 1, "tci", "pv", False),
+        (48, 1, 96, 32, 24, "cti", "pv", False),
+        (288, 1, 64, 4, 96, "tci", "pv", True),
+        (50, 1, 40, 18, 25, "cti", "p", False),
+        (24, 2, 33, 6, 24, "tci", "v", True)])
+def test_beamform_emulated_matches_plain(lib, ntime, nchan, ni, nbeam,
+                                         ntime_sum, layout, products,
+                                         integer):
+    """``cbd_beamform_products`` on CPU arrays: the gain prepass equals
+    the plain split word for word; power and VLBI pass the beam gate
+    against the float64 plain version (VLBI bit-exact with integer gains);
+    pad lanes past ninput hold garbage and an absent product is skipped."""
+    rng = np.random.RandomState(ntime + ni)
+    pad = 12 if layout == "cti" else 0
+    if layout == "cti":
+        blk = rng.randint(0, 256, (nchan, ntime, ni + pad)).astype(np.uint8)
+        xc = blk[:, :, :ni]
+    else:
+        blk = rng.randint(0, 256, (ntime, nchan, ni)).astype(np.uint8)
+        xc = blk.transpose(1, 0, 2)
+    if integer:
+        gr, gi = (rng.randint(-8, 9, (nchan, nbeam, ni)).astype(np.float32)
+                  for _ in range(2))
+    else:
+        gr, gi = (rng.randn(nchan, nbeam, ni).astype(np.float32)
+                  for _ in range(2))
+    gains = bf.BeamGains(torch.from_numpy(gr), torch.from_numpy(gi))
+    want_p, want_v = bf.beamform_products_ref(
+        torch.from_numpy(np.ascontiguousarray(xc)), gains, ntime_sum)
+    gsplit = np.full(bf.split_shape(nchan, ni), 0x55, np.int32)
+    power = np.full(tuple(want_p.shape), np.nan, np.float32)
+    vlbi = np.full(tuple(want_v.shape), np.nan, np.float32)
+    rc = lib.cbd_beamform_products(
+        ptr(xc), xc.strides[0], xc.strides[1], nchan, ntime, ni, ptr(gr),
+        ptr(gi), nbeam, ntime_sum, ptr(gsplit), gsplit.size,
+        ptr(power) if "p" in products else None,
+        ptr(vlbi) if "v" in products else None, None)
+    assert rc == 0
+    np.testing.assert_array_equal(gsplit, bf.split_gains_ref(gains).numpy())
+    if "p" in products:
+        close(power, want_p)
+    else:
+        assert np.isnan(power).all()
+    if "v" not in products:
+        assert np.isnan(vlbi).all()
+    elif integer:
+        np.testing.assert_array_equal(vlbi, want_v.numpy())
+    else:
+        close(vlbi, want_v)
+
+
+def test_gain_split_terms_sum_to_the_gain():
+    """Gains across forty decades split into three bf16 terms whose sum is
+    the gain exactly (the plain split, which the emulated prepass equals
+    word for word)."""
+    rng = np.random.RandomState(9)
+    g = (rng.randn(2, 4, 40) * 10.0 ** rng.uniform(-20, 20, (2, 4, 40))
+         ).astype(np.float32)
+    gains = bf.BeamGains(torch.from_numpy(g),
+                         torch.from_numpy(g[::-1].copy()))
+    words = bf.split_gains_ref(gains)
+    for half, plane in enumerate(gains):
+        total = sum((((words[:, :, s] >> (16 * half)) & 0xFFFF) << 16)
+                    .view(torch.float32).double()
+                    for s in range(bf.SPLIT_TERMS))
+        total = total.permute(0, 2, 1, 3).reshape(2, 32, -1)[:, :4, :40]
+        assert torch.equal(total, plane.double())
+
+
+def test_beamform_launcher_refuses_bad_arguments(lib):
+    xc = np.zeros((1, 8, 16), np.uint8)
+    g = np.zeros((1, 2, 16), np.float32)
+    gsplit = np.zeros(bf.split_shape(1, 16), np.int32)
+    out = np.zeros(64, np.float32)
+
+    def call(nbeam, ntime_sum, words):
+        return lib.cbd_beamform_products(
+            ptr(xc), xc.strides[0], xc.strides[1], 1, 8, 16, ptr(g), ptr(g),
+            nbeam, ntime_sum, ptr(gsplit), words, ptr(out), None, None)
+
+    assert call(2, 4, gsplit.size) == 0
+    assert call(3, 4, gsplit.size) != 0          # odd nbeam
+    assert call(2, 3, gsplit.size) != 0          # ntime_sum does not divide
+    assert call(2, 4, gsplit.size - 1) != 0      # short scratch

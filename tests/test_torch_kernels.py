@@ -79,7 +79,10 @@ def test_corr_acc_matches_plain(dev, ntime, nchan, ni, layout, pad, kind,
 
 @pytest.mark.parametrize("ntime,nchan,ni,nbeam,ntime_sum,layout,pad", [
     (48, 2, 40, 4, 12, "tci", 0), (240, 2, 70, 32, 24, "cti", 10),
-    (120, 1, 64, 6, 20, "tci", 0), (2400, 2, 704, 32, 24, "tci", 0)])
+    (120, 1, 64, 6, 20, "tci", 0), (2400, 2, 704, 32, 24, "tci", 0),
+    (48, 2, 20, 2, 1, "tci", 0), (96, 1, 96, 32, 24, "cti", 32),
+    (288, 1, 64, 4, 96, "tci", 0), (50, 1, 40, 18, 25, "cti", 3),
+    (2400, 3, 704, 32, 24, "cti", 64)])
 @pytest.mark.parametrize("integer_gains", [True, False])
 def test_beamform_products_matches_plain(dev, ntime, nchan, ni, nbeam,
                                          ntime_sum, layout, pad,
@@ -129,6 +132,63 @@ def test_corr_subsel_matches_plain(dev, nchan, ni, nchan_sum):
     torch.cuda.synchronize()
     assert torch.equal(got.real, want.real)
     assert torch.equal(got.imag, want.imag)
+
+
+def test_beamform_products_follow_gains_changed_in_place(dev):
+    """The bf16 split of the gains is made anew on every call: gains
+    rewritten in place (as a gain-load command does) move the products at
+    the next call, and the same storage with its first values gives the
+    first products again."""
+    rng = np.random.RandomState(3)
+    packed = _packed(rng, "tci", 96, 2, 72, 0, dev)
+    first = [torch.from_numpy(rng.randn(2, 8, 72).astype(np.float32)).to(dev)
+             for _ in range(2)]
+    gains = bf.BeamGains(first[0].clone(), first[1].clone())
+    p1, v1 = bf.beamform_products(packed, gains, 24)
+    other = [torch.from_numpy(rng.randn(2, 8, 72).astype(np.float32)).to(dev)
+             for _ in range(2)]
+    gains.real.copy_(other[0])
+    gains.imag.copy_(other[1])
+    p2, v2 = bf.beamform_products(packed, gains, 24)
+    want_p, want_v = bf.beamform_products_ref(chan_major(packed, "tci"),
+                                              bf.BeamGains(*other), 24)
+    torch.cuda.synchronize()
+    assert not torch.equal(p1, p2) and not torch.equal(v1, v2)
+    assert torch.allclose(p2, want_p, rtol=1e-4,
+                          atol=1e-4 * float(want_p.abs().max()))
+    assert torch.allclose(v2, want_v, rtol=1e-4,
+                          atol=1e-4 * float(want_v.abs().max()))
+    gains.real.copy_(first[0])
+    gains.imag.copy_(first[1])
+    p3, v3 = bf.beamform_products(packed, gains, 24)
+    assert torch.equal(p3, p1) and torch.equal(v3, v1)
+
+
+@pytest.mark.parametrize("ntime,nchan,ni,nbeam", [(48, 4, 40, 4),
+                                                  (2400, 2, 704, 32)])
+def test_beam_products_with_cancellation_on_card(dev, ntime, nchan, ni,
+                                                 nbeam):
+    """Y beams nearly equal to X beams times i: Re(XY*) cancels to ~0
+    while XX is large; the tensor cores' fp32 sums of the three bf16 gain
+    terms must stay within the beam gate of the float64 plain version."""
+    rng = np.random.RandomState(5)
+    packed = _packed(rng, "tci", ntime, nchan, ni, 0, dev)
+    gr = rng.randn(nchan, nbeam, ni).astype(np.float32)
+    gi = rng.randn(nchan, nbeam, ni).astype(np.float32)
+    gr[:, 1::2] = -gi[:, 0::2] + 1e-3 * rng.randn(nchan, nbeam // 2, ni)
+    gi[:, 1::2] = gr[:, 0::2] + 1e-3 * rng.randn(nchan, nbeam // 2, ni)
+    gains = bf.BeamGains(torch.from_numpy(gr).to(dev),
+                         torch.from_numpy(gi).to(dev))
+    power, vlbi = bf.beamform_products(packed, gains, 24)
+    want_p, want_v = bf.beamform_products_ref(chan_major(packed, "tci"),
+                                              gains, 24)
+    torch.cuda.synchronize()
+    assert float(want_p[..., 2].abs().max()) \
+        < 0.05 * float(want_p[..., 0].abs().max())
+    assert torch.allclose(power, want_p, rtol=1e-4,
+                          atol=1e-4 * float(want_p.abs().max()))
+    assert torch.allclose(vlbi, want_v, rtol=1e-4,
+                          atol=1e-4 * float(want_v.abs().max()))
 
 
 def test_launch_counters_count_kernel_launches(dev):

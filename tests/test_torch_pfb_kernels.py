@@ -139,8 +139,52 @@ def test_structured_adc(dev, fast):
     assert set(mag.topk(2).indices.tolist()) == {5, 77}
 
 
+@pytest.mark.parametrize("nspec,ninput,dtype,fast,per_chan,strided", [
+    (5, 18, "int8", False, False, False), (3, 16, "int8", False, True, False),
+    (2, 5, "float32", False, True, True), (4, 32, "int8", True, False, True),
+    (1, 3, "float32", True, True, False)])
+def test_factored_at_1024_channels(dev, nspec, ninput, dtype, fast, per_chan,
+                                   strided):
+    """L = 2048 = 64 x 32, the shapes of the g++ emulation test and a few
+    more: both DFT stages on the FP64 tensor cores, int8 rows through the
+    16-byte FIR kernel (16 and 32 inputs) and through the generic one, a
+    strided ADC (every second column of a wider array), both precisions."""
+    nchan, ntap = 1024, 4
+    wide = _adc(dev, nchan, ntap, nspec, ninput * (2 if strided else 1),
+                dtype, nspec + ninput)
+    x = wide[:, ::2] if strided else wide
+    w = torch.from_numpy(pfb.pfb_window(nchan, ntap)).to(dev)
+    scale = _scale(x, w, nchan, ntap, per_chan, ninput)
+    before = pfb_fused.pfb_factored.launches
+    got = pfb_fused.pfb_quantize_packed(x, w, nchan, ntap, scale, fast)
+    torch.cuda.synchronize()
+    assert pfb_fused.pfb_factored.launches == before + 1
+    check(got, x, w, nchan, ntap, scale, fast)
+
+
+def test_lengths_neither_kernel_takes_raise_on_card(dev):
+    """On both sides of the direct kernel's limit: nchan = 559 runs, 560
+    raises (its folded FIR rows no longer fit shared memory); a factor
+    pair the factored kernel does not tile raises too."""
+    ntap = 4
+    limit = pfb_fused.direct_max_nchan()
+    x = _adc(dev, limit, ntap, 2, 3, "int8", 1)
+    w = torch.from_numpy(pfb.pfb_window(limit, ntap)).to(dev)
+    scale = _scale(x, w, limit, ntap, False, 0)
+    got = pfb_fused.pfb_quantize_packed(x, w, limit, ntap, scale)
+    torch.cuda.synchronize()
+    check(got, x, w, limit, ntap, scale, False)
+    for nchan, match in ((limit + 1, "too long for the direct kernel"),
+                         (1072, "the factored kernel takes")):
+        x = _adc(dev, nchan, ntap, 1, 2, "int8", 2)
+        w = torch.from_numpy(pfb.pfb_window(nchan, ntap)).to(dev)
+        with pytest.raises(ValueError, match=match):
+            pfb_fused.pfb_quantize_packed(x, w, nchan, ntap, 0.01)
+
+
 @pytest.mark.parametrize("nchan,nspec,fast", [
-    (192, 2400, False), (192, 2400, True), (4096, 24, False)])
+    (192, 2400, False), (192, 2400, True), (4096, 24, False),
+    (4096, 24, True)])
 def test_production_width(dev, nchan, nspec, fast):
     """704 inputs: one 2400-spectra window at 192 channels (direct) and 24
     spectra of the 4096-channel F-engine (factored), int8 ADC."""
