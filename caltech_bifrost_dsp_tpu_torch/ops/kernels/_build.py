@@ -2,9 +2,10 @@
 
 ``csrc/*.cu`` compile with ``nvcc`` into ONE shared library with plain
 ``extern "C"`` launchers, loaded with ``ctypes``: one ``nvcc -c`` per
-source, all started together, then one link.  The library lands in
+source, all started together, then one link; ``csrc/*.cuh`` are the
+headers they include.  The library lands in
 ``caltech_bifrost_dsp_tpu_torch/_build/`` under a name that carries the
-hash of the sources and flags, so an edited source rebuilds and an
+hash of the sources, headers and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing is built at import; a failed build
 raises and nothing falls back to another path.
 """
@@ -51,9 +52,16 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    """The headers the sources include (``corr_tile.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers: an edited header
+    rebuilds every source, as nvcc would have to."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in _sources() + _headers():
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

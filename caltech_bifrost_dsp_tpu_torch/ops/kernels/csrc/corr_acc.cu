@@ -13,22 +13,13 @@
 //          = copy of fast    if slow_first
 //          = slow + fast     otherwise
 //
-// Arithmetic: mma.sync.m16n8k32 (s8 x s8 -> s32, exact).  The operands are
-// planes of sign-extended bytes, four time samples of one input to a 32-bit
-// word, staged in shared memory as [plane][word][input]: a fragment
-// register of the instruction is four consecutive k bytes of one row (A) or
-// one column (B), which is exactly one such word, so a lane (g = lane / 4,
-// t = lane % 4) reads words [t or t + 4][g or g + 8] with no ldmatrix and
-// no transpose.  The row pitch is 136 words, so the 32 lanes of a load fall
-// on banks 8 t + g, all distinct.
-//
-// Four real products, not Karatsuba's three: vr = ar.br + ai.bi and
-// vi = ai.br + (-ar).bi accumulate into TWO fragments per output tile (the
-// row side stages re, im and -re, which fits a byte: -(-8) = 8; the column
-// side re and im).  Karatsuba's third accumulator would take the warp tile
-// from 128 to 192 registers per lane and a sixth staged plane; the tensor
-// cores have the third more multiply-adds to spare, shared memory does not
-// have the bandwidth (one 32-bit fragment load per MMA as it is).
+// Arithmetic: the int8 tensor-core tile of corr_tile.cuh (mma.sync.m16n8k32
+// s8 -> s32, exact; operands as planes of 4-sample words at pitch 136;
+// four real products into two fragment sets).  Karatsuba's third
+// accumulator would take the warp tile from 128 to 192 registers per lane
+// and a sixth staged plane; the tensor cores have the third more
+// multiply-adds to spare, shared memory does not have the bandwidth (one
+// 32-bit fragment load per MMA as it is).
 //
 // Tile: 8 warps, each a 64 x 32 piece of the 128 x 128 pair (4 x 4 MMA
 // tiles, 2 x 64 accumulator registers a lane).  128-input tiles re-read
@@ -74,77 +65,17 @@
 // to 256 and slices the result; this one masks ragged edges, so the padded
 // variant has no counterpart.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "corr_tile.cuh"
 
 namespace {
 
-constexpr int TILE = 128;           // inputs per tile side
 constexpr int TCHUNK = 64;          // time samples staged per buffer
 constexpr int NQ = TCHUNK / 4;      // packed 4-sample words per input
-constexpr int PITCH = TILE + 8;     // words per staged row: banks 8 t + g
 constexpr int NSTAGED = 5;          // row re, im, -re; column re, im
 constexpr int NCACHED = 3;          // prepass planes: re, im, -re
 constexpr int STAGE = NSTAGED * NQ * PITCH;     // words per buffer
-constexpr int THREADS = 256;        // 2 x 4 warps of 64 x 32 outputs
 constexpr int SMEM_BYTES = 2 * STAGE * 4;
 constexpr int NRAW = 2 * NQ * TILE / THREADS;   // fetched words per thread
-
-// The tensor-core instruction and the asynchronous copies sit behind these
-// four functions; a host build (CBD_HOST_EMULATION, with a cuda_runtime.h
-// that supplies them lane by lane) compiles the rest of this file as C++.
-#ifdef CBD_HOST_EMULATION
-using cbd_emu::cp_async16;
-using cbd_emu::cp_async_commit;
-using cbd_emu::cp_async_wait_all;
-using cbd_emu::mma_m16n8k32_s8;
-#else
-// c[16 x 8] += a[16 x 32] b[32 x 8]; lane (g, t): a = rows g, g + 8 x
-// k 4t.., rows g, g + 8 x k 16 + 4t..; b = column g x k 4t.., 16 + 4t..;
-// c = rows g, g + 8 x columns 2t, 2t + 1
-__device__ __forceinline__ void mma_m16n8k32_s8(int (&c)[4],
-                                                const int (&a)[4],
-                                                const int (&b)[2])
-{
-    asm(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(void* shared, const void* global)
-{
-    const unsigned s = static_cast<unsigned>(
-        __cvta_generic_to_shared(shared));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(s), "l"(global) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit()
-{
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all()
-{
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-#endif
-
-// Byte-parallel arithmetic on a word of four 4+4-bit samples.
-// Sign-extend the low nibble of every byte (the high nibbles are zero).
-__device__ __forceinline__ unsigned sext4x4(unsigned v)
-{
-    return v | ((v & 0x08080808u) * 0x1Eu);
-}
-
-// Negate every byte: ~x + 1 with no carry across bytes.
-__device__ __forceinline__ unsigned neg4(unsigned x)
-{
-    const unsigned y = ~x;
-    return ((y & 0x7F7F7F7Fu) + 0x01010101u) ^ (y & 0x80808080u);
-}
 
 // Four time samples t0 .. t0 + 3 of input ``in`` as one word, sample u in
 // byte u; zero past ntime.
@@ -238,18 +169,8 @@ corr_acc_kernel(const uint8_t* __restrict__ packed, long long stride_c,
     const int wn = (tid >> 5) & 3;      // columns wn * 32 ..
     const bool active = i0 + wm * 64 < ninput && j0 + wn * 32 < ninput;
 
-    int vr[4][4][4], vi[4][4][4];       // [row MMA tile][column tile][c]
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                vr[m][n][e] = 0;
-                vi[m][n][e] = 0;
-            }
-        }
-    }
+    Acc vr, vi;
+    zero_acc(vr, vi);
 
     const uint8_t* base = packed + static_cast<long long>(c) * stride_c;
     const int pitch = cache_pitch(ninput);
@@ -335,37 +256,9 @@ corr_acc_kernel(const uint8_t* __restrict__ packed, long long stride_c,
         if (active) {
 #pragma unroll
             for (int ks = 0; ks < TCHUNK / 32; ++ks) {
-                // words t and t + 4 of this k step
-                const int* lo = cur + (ks * 8 + t) * PITCH;
-                const int* hi = lo + 4 * PITCH;
-                int br[4][2], bi[4][2];
-#pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                    const int col = wn * 32 + n * 8 + g;
-                    br[n][0] = lo[3 * NQ * PITCH + col];
-                    br[n][1] = hi[3 * NQ * PITCH + col];
-                    bi[n][0] = lo[4 * NQ * PITCH + col];
-                    bi[n][1] = hi[4 * NQ * PITCH + col];
-                }
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                    const int row = wm * 64 + m * 16 + g;
-                    int a[3][4];
-#pragma unroll
-                    for (int pl = 0; pl < 3; ++pl) {
-                        a[pl][0] = lo[pl * NQ * PITCH + row];
-                        a[pl][1] = lo[pl * NQ * PITCH + row + 8];
-                        a[pl][2] = hi[pl * NQ * PITCH + row];
-                        a[pl][3] = hi[pl * NQ * PITCH + row + 8];
-                    }
-#pragma unroll
-                    for (int n = 0; n < 4; ++n) {
-                        mma_m16n8k32_s8(vr[m][n], a[0], br[n]);
-                        mma_m16n8k32_s8(vr[m][n], a[1], bi[n]);
-                        mma_m16n8k32_s8(vi[m][n], a[1], br[n]);
-                        mma_m16n8k32_s8(vi[m][n], a[2], bi[n]);
-                    }
-                }
+                const int* a = cur + ks * 8 * PITCH;
+                mma_kstep<NEG_A>(a, NQ * PITCH, a + 3 * NQ * PITCH,
+                                 NQ * PITCH, wm * 64, wn * 32, lane, vr, vi);
             }
         }
         if constexpr (!CACHED) {

@@ -6,8 +6,11 @@ Builds the kernels from ``caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc``,
 holds each against its plain PyTorch version at the LWA-352 production
 shapes (704 inputs, 192 channels, 2400-spectra window, 32 beams; the
 channelizer also at the 4096-channel F-engine width; the correlators
-also at a ragged shape), then drives five paths of the port, each with the
-kernel launch counts set to 0 just before it and read just after:
+also at a ragged shape, and the two that unpack their own tiles,
+``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
+after the compiler's report of their registers and spills), then drives
+five paths of the port, each with the kernel launch counts set to 0 just
+before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
   0xdeadbeef), three fast windows at 192 channels and one at 184;
@@ -894,8 +897,28 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
     matmul_yardstick(card, cfg.ninput * cfg.acc_len, L)
 
 
+def ptxas_report(card: str, kernels: tuple) -> None:
+    """The compiler's report (registers, spills, static shared memory) of
+    each of ``kernels`` (names of __global__ functions), from the log the
+    build keeps beside the library."""
+    log = _build.BUILD_DIR / f"libcbd_kernels_{_build.source_hash()}.log"
+    lines = log.read_text().splitlines()
+    for kernel in kernels:
+        starts = [k for k, line in enumerate(lines)
+                  if "Compiling entry function" in line and kernel in line]
+        check(len(starts) == 1, f"ptxas report of {kernel} not found")
+        report = []
+        for line in lines[starts[0] + 1:]:
+            if "Compiling entry function" in line:
+                break
+            if "registers" in line or "spill" in line:
+                report.append(line.split(":", 1)[-1].strip())
+        print(f"[{card}] ptxas {kernel}: {'; '.join(report)}", flush=True)
+
+
 def phase_triu(dev, card: str, results: dict) -> None:
     """The three gulp correlators against their plain versions."""
+    ptxas_report(card, ("corr_triu_kernel", "corr_rows_kernel"))
     phase_gulp(dev, card, results, "corr_triu", corr_triu, corr_triu_ref,
                TILE)
     phase_gulp(dev, card, results, "corr_blk", cblk.corr_blk,
@@ -904,22 +927,44 @@ def phase_triu(dev, card: str, results: dict) -> None:
                crows.corr_rows_ref, crows.TILE)
 
 
+def gulp_block(kind: str, shape: tuple, layout: str, g, dev):
+    """A packed block of ``shape`` in ``layout``: random bytes, all 0x88
+    (both nibbles -8, the widest products), or structured (a distinct byte
+    per input and time sample, so a wrong fragment or transpose map cannot
+    hide in noise)."""
+    if kind == "random":
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+    if kind == "widest":
+        return torch.full(shape, 0x88, dtype=torch.uint8, device=dev)
+    a, b, i = (torch.arange(n, device=dev) for n in shape)
+    t, c = (a, b) if layout == "tci" else (b, a)
+    view = {"tci": ((-1, 1, 1), (1, -1, 1)), "cti": ((1, -1, 1), (-1, 1, 1))}
+    t, c = t.reshape(view[layout][0]), c.reshape(view[layout][1])
+    return ((i * 7 + t * 13 + c * 29) % 256).to(torch.uint8)
+
+
 def phase_gulp(dev, card: str, results: dict, name: str, fn, ref,
                tile_size: int) -> None:
-    """A gulp correlator against its plain version: production shape in
-    both layouts, and a ragged shape (300 inputs, 997 spectra, padded
-    cti).  Exact int32 on the upper tiles, zero below them."""
+    """A gulp correlator against its plain version: random bytes at the
+    production shape in both layouts and at a ragged shape (300 inputs, 997
+    spectra, padded cti); the two kernels that unpack their own tiles
+    (``corr_triu``, ``corr_rows``) also on structured and all-0x88 blocks at
+    the production shape.  Exact int32 on the upper tiles, zero below
+    them."""
     cfg = LWA352
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     err = 0.0
-    for ntime, nchan, ni, layout, pad in [
-            (cfg.acc_len, cfg.nchan, cfg.ninput, "tci", 0),
-            (cfg.acc_len, cfg.nchan, cfg.ninput, "cti", 64),
-            (997, 3, 300, "cti", 20)]:
+    cases = [("random", cfg.acc_len, cfg.nchan, cfg.ninput, "tci", 0),
+             ("random", cfg.acc_len, cfg.nchan, cfg.ninput, "cti", 64),
+             ("random", 997, 3, 300, "cti", 20)]
+    if name in ("corr_triu", "corr_rows"):
+        cases += [("structured", cfg.acc_len, cfg.nchan, cfg.ninput, "tci", 0),
+                  ("widest", cfg.acc_len, cfg.nchan, cfg.ninput, "cti", 64)]
+    for kind, ntime, nchan, ni, layout, pad in cases:
         shape = ((ntime, nchan, ni) if layout == "tci"
                  else (nchan, ntime, ni + pad))
-        packed = torch.randint(0, 256, shape, generator=g, device=dev,
-                               dtype=torch.uint8)
+        packed = gulp_block(kind, shape, layout, g, dev)
         got = fn(packed, layout, ni)
         want = ref(chan_major(packed, layout, ni))
         torch.cuda.synchronize()
@@ -932,14 +977,26 @@ def phase_gulp(dev, card: str, results: dict, name: str, fn, ref,
             check(not a[:, ~valid].any(), f"{name} wrote below the "
                   "diagonal tiles")
             err = max(err, max_abs(a[:, valid], b[:, valid]))
-        print(f"{name} {ni} inputs x {nchan} channels x {ntime} spectra "
-              f"{layout}: exact int32 on the upper {tile_size}-tiles", flush=True)
-        if ni == cfg.ninput and layout == "tci":
+        print(f"{name} {kind} {ni} inputs x {nchan} channels x {ntime} "
+              f"spectra {layout}: exact int32 on the upper {tile_size}-tiles",
+              flush=True)
+        if kind == "random" and ni == cfg.ninput and layout == "tci":
             xc = chan_major(packed, layout, ni)
             results[name].update(
                 ms=cuda_ms(lambda: fn(packed, layout, ni), 5),
                 plain_ms=cuda_ms(lambda: ref(xc), 2),
                 **corr_bound(nchan, ntime, ni, tile_size, 0, 2))
+            if name in ("corr_triu", "corr_rows"):
+                # one call per gulp, as the driver's pallas_triu step and
+                # the schedules run call them
+                gulps = [packed[t:t + cfg.ntime_gulp]
+                         for t in range(0, ntime, cfg.ntime_gulp)]
+                gulp_ms = cuda_ms(lambda: [fn(x, layout, ni) for x in gulps],
+                                  5)
+                print(f"[{card}] {name}: {len(gulps)} calls of "
+                      f"{cfg.ntime_gulp} spectra, one per gulp: {gulp_ms:.3f} "
+                      f"ms per window (one call over the window: "
+                      f"{results[name]['ms']:.3f} ms)", flush=True)
         del got, want
     results[name]["max_abs_err"] = err
     print_kernel(card, name, results[name], "per 2400-spectra window at 704 "

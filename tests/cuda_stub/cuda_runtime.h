@@ -73,6 +73,10 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int)
     return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t err)
+{
+    return err == cudaSuccess ? "no error" : "invalid argument";
+}
 
 namespace cbd_emu {
 

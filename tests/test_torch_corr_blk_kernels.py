@@ -10,9 +10,11 @@ tests/test_torch_corr_blk_kernels.py`` (the suite's conftest imports JAX).
 Shapes are ragged (inputs not a multiple of the tile, times not a multiple
 of the 64-sample chunk, of the 32-sample MMA step nor of the row kernel's
 512-sample segment; 1, 31 and 33 spectra; 72, 300 and 704 inputs), padded
-cti, strided shard views of a larger block, and production widths.  Checks
-are exact int32 on every entry of the valid tiles; tiles below the diagonal
-stay zero; the unpack-once state is bit-identical to the default kernel's.
+cti, strided shard views of a larger block, and production widths, the
+row kernel also on structured and all-0x88 inputs over several segments.
+Checks are exact int32 on every entry of the valid tiles; tiles below the
+diagonal stay zero; the unpack-once state is bit-identical to the default
+kernel's.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from caltech_bifrost_dsp_tpu_torch.ops.beamform import BeamGains
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import corr_acc, corr_acc_ref
 from caltech_bifrost_dsp_tpu_torch.ops.correlate import Vis, chan_major
 from caltech_bifrost_dsp_tpu_torch.parallel import mesh as pm
+from test_torch_triu_kernels import structured_block
 
 torch.set_num_threads(1)
 
@@ -79,6 +82,26 @@ def test_gulp_correlator_matches_plain(dev, name, ntime, nchan, ni, layout,
     valid = tile[:, None] <= tile[None, :]
     for g, w in zip(got, want):
         assert g.shape == (nchan, ni, ni) and g.dtype == torch.int32
+        assert torch.equal(g[:, valid], w[:, valid])
+        assert not g[:, ~valid].any()
+
+
+@pytest.mark.parametrize("kind", ["structured", "widest"])
+@pytest.mark.parametrize("ntime,layout,pad", [(2400, "tci", 0),
+                                              (997, "cti", 64),
+                                              (513, "tci", 0)])
+def test_corr_rows_structured_at_full_width(dev, kind, ntime, layout, pad):
+    """The row kernel at 704 inputs over five, two and two 512-sample
+    segments (the later ones add to the strips the first stored), on inputs
+    with a distinct value per input and time and on all 0x88."""
+    ni, nchan = 704, 3
+    packed = structured_block(kind, ntime, nchan, ni, layout, pad, dev)
+    got = cr.corr_rows(packed, layout, ni)
+    want = cr.corr_rows_ref(chan_major(packed, layout, ni))
+    torch.cuda.synchronize()
+    tile = torch.arange(ni, device=dev) // cr.TILE
+    valid = tile[:, None] <= tile[None, :]
+    for g, w in zip(got, want):
         assert torch.equal(g[:, valid], w[:, valid])
         assert not g[:, ~valid].any()
 

@@ -1,8 +1,9 @@
-"""``csrc/corr_acc.cu``, ``csrc/pfb_quantize.cu`` and
-``csrc/beamform_products.cu`` compiled with g++ against
-``tests/cuda_stub/cuda_runtime.h`` and run on CPU arrays through their
-``extern "C"`` launchers (the correlator's three, the channelizer's two,
-the beamformer's one), against the plain versions.
+"""Every source under ``csrc/`` (``corr_acc.cu``, ``corr_triu.cu``,
+``corr_rows.cu``, ``subsel_gather.cu``, ``pfb_quantize.cu``,
+``beamform_products.cu``, with the header ``corr_tile.cuh`` they share)
+compiled with g++ against ``tests/cuda_stub/cuda_runtime.h`` and run on
+CPU arrays through their ``extern "C"`` launchers, against the plain
+versions.
 
 The stub runs a block's threads as host threads and supplies the int8
 tensor-core instruction lane by lane from the PTX fragment layout, so this
@@ -19,7 +20,11 @@ the factored channelizer (both DFT stages on the FP64 MMA, FIR fused in)
 at 1024 channels the same way.  The beamformer (bf16 MMA from a three-term
 split of the gains) runs in both layouts at ragged inputs, beams, time
 tiles and integration lengths against the float64 plain version, and
-bit-exactly with integer gains.
+bit-exactly with integer gains.  The two gulp correlators run at ragged
+inputs and times in both layouts, through both of their load paths (16-byte
+cp.async, and bytes where a stride is not 16-byte aligned), the row
+kernel over two 512-sample segments; the gather with out-of-range and
+negative pairs.
 Skips without g++.
 """
 
@@ -35,6 +40,9 @@ import torch
 
 from caltech_bifrost_dsp_tpu_torch.ops import beamform as bf
 from caltech_bifrost_dsp_tpu_torch.ops import corr_blk as cb
+from caltech_bifrost_dsp_tpu_torch.ops import corr_rows as cr
+from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
+from caltech_bifrost_dsp_tpu_torch.ops import corr_triu as ct
 from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
 from caltech_bifrost_dsp_tpu_torch.ops.corr_acc import (cache_shape,
                                                         corr_acc_ref,
@@ -65,21 +73,32 @@ def lib(tmp_path_factory):
         pytest.skip("needs g++")
     work = tmp_path_factory.mktemp("emulation")
     srcs = []
-    for stem in ("corr_acc", "pfb_quantize", "beamform_products"):
-        srcs.append(work / f"{stem}.cpp")
-        srcs[-1].write_text(host_source(
-            (_build.CSRC / f"{stem}.cu").read_text()))
+    for src in _build._sources():
+        srcs.append(work / f"{src.stem}.cpp")
+        srcs[-1].write_text(host_source(src.read_text()))
     so = work / "libkernels_host.so"
+    # the headers are included from csrc as they are
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    f"-I{STUB}", "-o", str(so), *map(str, srcs)], check=True)
+                    f"-I{STUB}", f"-I{_build.CSRC}", "-o", str(so),
+                    *map(str, srcs)], check=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("cbd_corr_acc", "cbd_corr_acc_cached", "cbd_corr_blk",
-                 "cbd_pfb_direct", "cbd_pfb_factored",
-                 "cbd_beamform_products"):
+    for name, argtypes in _build.SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _build.SIGNATURES[name]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def test_every_source_is_emulated():
+    """The fixture builds every ``csrc/*.cu`` and binds every launcher:
+    six sources, nine launchers."""
+    assert [p.name for p in _build._sources()] == [
+        "beamform_products.cu", "corr_acc.cu", "corr_rows.cu",
+        "corr_triu.cu", "pfb_quantize.cu", "subsel_gather.cu"]
+    assert sorted(_build.SIGNATURES) == sorted([
+        "cbd_beamform_products", "cbd_corr_acc", "cbd_corr_acc_cached",
+        "cbd_corr_blk", "cbd_corr_rows", "cbd_corr_triu",
+        "cbd_pfb_direct", "cbd_pfb_factored", "cbd_subsel_gather"])
 
 
 def block(kind: str, ntime: int, nchan: int, ni: int) -> np.ndarray:
@@ -178,6 +197,112 @@ def test_launchers_refuse_a_short_scratch(lib):
                                    None) != 0
     assert lib.cbd_corr_blk(*args, ptr(planes[0]), ptr(planes[1]),
                             None) != 0
+
+
+GULP = {"cbd_corr_triu": ct.corr_triu_ref, "cbd_corr_rows": cr.corr_rows_ref}
+SENTINEL = 0x5A5A5A5A
+
+
+# (kind, ntime, nchan, ninput, layout, pad, view): the channel stride (72)
+# not 16-byte aligned, a ragged MMA step; the 16-byte path with a vector cut
+# by ninput (140) over three chunks; all 0x88 in a padded cti block; tci at
+# 300 inputs x 3 channels (time stride 900, not 16-byte aligned), three
+# tiles; one sample; a shard view of a larger block over three segments of
+# the row kernel (512 + 9 spectra)
+GULP_CASES = [("random", 33, 2, 72, "tci", 0, False),
+              ("structured", 70, 1, 140, "cti", 4, False),
+              ("widest", 45, 2, 130, "cti", 14, False),
+              ("random", 37, 3, 300, "tci", 0, False),
+              ("structured", 1, 1, 256, "tci", 0, False),
+              ("random", 521, 1, 140, "cti", 4, True)]
+
+
+def gulp_block(kind, ntime, nchan, ni, layout, pad, view) -> np.ndarray:
+    """A chan-major view [nchan, ntime, ni] of a packed block in
+    ``layout``; ``view`` cuts it out of a larger block in chan and time."""
+    if view:
+        big = block(kind, ntime + 9, nchan + 2, ni + pad)
+        return big[1:1 + nchan, 4:4 + ntime, :ni]
+    if layout == "cti":
+        return block(kind, ntime, nchan, ni + pad)[:, :, :ni]
+    return np.ascontiguousarray(
+        block(kind, ntime, nchan, ni).transpose(1, 0, 2)).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("name", sorted(GULP))
+@pytest.mark.parametrize("kind,ntime,nchan,ni,layout,pad,view", GULP_CASES)
+def test_gulp_correlator_emulated_matches_plain(lib, name, kind, ntime, nchan,
+                                                ni, layout, pad, view):
+    """``cbd_corr_triu`` (fused unpack per tile pair) and ``cbd_corr_rows``
+    (row tile resident per segment) on CPU arrays: exact int32 on the tiles
+    with tile(j) >= tile(i), which the first segment stores over what the
+    planes held; the tiles below are never written."""
+    xc = gulp_block(kind, ntime, nchan, ni, layout, pad, view)
+    if layout == "tci" and not view:
+        assert xc.strides[1] == nchan * ni     # the tci time stride
+    out = [np.full((nchan, ni, ni), SENTINEL, np.int32) for _ in range(2)]
+    rc = getattr(lib, name)(ptr(xc), xc.strides[0], xc.strides[1], nchan,
+                            ntime, ni, ptr(out[0]), ptr(out[1]), None)
+    assert rc == 0
+    want = GULP[name](torch.from_numpy(np.ascontiguousarray(xc)))
+    tile = np.arange(ni) // ct.TILE
+    valid = tile[:, None] <= tile[None, :]
+    for g, w in zip(out, want):
+        np.testing.assert_array_equal(g[:, valid], w.numpy()[:, valid])
+        assert (g[:, ~valid] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("name", sorted(GULP))
+def test_gulp_launchers_refuse_bad_arguments(lib, name):
+    xc = np.zeros((1, 8, 16), np.uint8)
+    out = np.zeros((1, 16, 16), np.int32)
+    fn = getattr(lib, name)
+    assert fn(ptr(xc), 128, 16, 1, 8, 16, ptr(out), ptr(out), None) == 0
+    assert fn(ptr(xc), 128, 16, 0, 8, 16, ptr(out), ptr(out), None) != 0
+    assert fn(ptr(xc), 128, 16, 1, -1, 16, ptr(out), ptr(out), None) != 0
+    assert fn(ptr(xc), 128, 16, 1, 8, 0, ptr(out), ptr(out), None) != 0
+
+
+# (nchan, ninput, nvis, nchan_sum): more pairs than a block's 256 threads,
+# one channel summed per output, all channels into one
+@pytest.mark.parametrize("nchan,ni,nvis,nchan_sum", [
+    (8, 20, 300, 4), (3, 7, 5, 1), (6, 33, 40, 6)])
+def test_subsel_gather_emulated_matches_plain(lib, nchan, ni, nvis,
+                                              nchan_sum):
+    """``cbd_subsel_gather`` against the plain gather: both orders of a
+    pair (the conjugated one flips the imaginary sign), and pairs out of
+    range or negative, which clamp to [0, ninput - 1] first."""
+    rng = np.random.RandomState(nvis + ni)
+    vis = [rng.randint(-2 ** 30, 2 ** 30, (nchan, ni, ni)).astype(np.int32)
+           for _ in range(2)]
+    pairs = rng.randint(0, ni, (nvis, 2)).astype(np.int32)
+    pairs[:3] = [[ni + 5, 2], [-3, ni - 1], [1, -40]]
+    out = [np.full((nchan // nchan_sum, nvis), SENTINEL, np.int32)
+           for _ in range(2)]
+    rc = lib.cbd_subsel_gather(ptr(vis[0]), ptr(vis[1]), nchan, ni,
+                               ptr(pairs), nvis, nchan_sum, ptr(out[0]),
+                               ptr(out[1]), None)
+    assert rc == 0
+    want = cs.corr_subsel_ref(Vis(*map(torch.from_numpy, vis)),
+                              torch.from_numpy(pairs), nchan_sum)
+    for g, w in zip(out, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_subsel_gather_refuses_bad_arguments(lib):
+    vis = np.zeros((4, 8, 8), np.int32)
+    pairs = np.zeros((2, 2), np.int32)
+    out = np.zeros(8, np.int32)
+
+    def call(nchan, ni, nchan_sum):
+        return lib.cbd_subsel_gather(ptr(vis), ptr(vis), nchan, ni,
+                                     ptr(pairs), 2, nchan_sum, ptr(out),
+                                     ptr(out), None)
+
+    assert call(4, 8, 2) == 0
+    assert call(4, 8, 3) != 0       # nchan_sum does not divide nchan
+    assert call(4, 8, 0) != 0
+    assert call(4, 0, 2) != 0
 
 
 @pytest.mark.parametrize("nchan,nspec,ninput,dtype,fast,per_chan", [

@@ -4,9 +4,11 @@ Marked ``cuda``: each test skips without a CUDA device.  On a GPU host
 without JAX run it as ``python -m pytest --noconftest
 tests/test_torch_triu_kernels.py`` (the suite's conftest imports JAX).
 Shapes are ragged (inputs not a multiple of the 128-input tile, times not
-a multiple of the 32-sample stage), padded cti, and one production-width
-case.  The check is exact int32 on every entry of the tiles with tile(j)
->= tile(i); the tiles below the diagonal stay zero.
+a multiple of the 32-sample MMA step or the 64-sample chunk), padded cti,
+strides that are not 16-byte aligned, and production-width cases on
+structured and all-0x88 inputs.  The check is exact int32 on every entry
+of the tiles with tile(j) >= tile(i); the tiles below the diagonal stay
+zero.
 """
 
 import numpy as np
@@ -49,6 +51,40 @@ def test_corr_triu_matches_plain(dev, ntime, nchan, ni, layout, pad):
     valid = tile[:, None] <= tile[None, :]
     for g, w in zip(got, want):
         assert g.shape == (nchan, ni, ni) and g.dtype == torch.int32
+        assert torch.equal(g[:, valid], w[:, valid])
+        assert not g[:, ~valid].any()
+
+
+def structured_block(kind, ntime, nchan, ni, layout, pad, dev):
+    """All 0x88 (both nibbles -8, the widest products), or a distinct
+    byte per input and time sample, so a wrong fragment or transpose map
+    cannot hide in noise."""
+    shape = (ntime, nchan, ni) if layout == "tci" else (nchan, ntime, ni + pad)
+    if kind == "widest":
+        return torch.full(shape, 0x88, dtype=torch.uint8, device=dev)
+    idx = [torch.arange(n, device=dev) for n in shape]
+    t, c = (idx[0], idx[1]) if layout == "tci" else (idx[1], idx[0])
+    i = idx[2]
+    t = t.reshape(-1, 1, 1) if layout == "tci" else t.reshape(1, -1, 1)
+    c = c.reshape(1, -1, 1) if layout == "tci" else c.reshape(-1, 1, 1)
+    return ((i * 7 + t * 13 + c * 29) % 256).to(torch.uint8)
+
+
+@pytest.mark.parametrize("kind", ["structured", "widest"])
+@pytest.mark.parametrize("ntime,layout,pad", [(2400, "tci", 0),
+                                              (997, "cti", 64)])
+def test_corr_triu_structured_at_full_width(dev, kind, ntime, layout, pad):
+    """704 inputs (the last tile half empty), the production window and a
+    ragged one, on inputs with a distinct value per input and time and on
+    all 0x88."""
+    ni, nchan = 704, 3
+    packed = structured_block(kind, ntime, nchan, ni, layout, pad, dev)
+    got = corr_triu(packed, layout, ni)
+    want = corr_triu_ref(chan_major(packed, layout, ni))
+    torch.cuda.synchronize()
+    tile = torch.arange(ni, device=dev) // TILE
+    valid = tile[:, None] <= tile[None, :]
+    for g, w in zip(got, want):
         assert torch.equal(g[:, valid], w[:, valid])
         assert not g[:, ~valid].any()
 
