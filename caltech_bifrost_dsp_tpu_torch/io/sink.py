@@ -7,7 +7,8 @@ correlation and beam packet emitters.
   Two wire formats, the custom 56-byte header or the production LWA-SV
   "COR" Mark5C format (``use_cor_fmt``).  Packets are built from the int32
   planes a whole stand row at a time; the bytes equal the JAX sink's
-  per-baseline encoding.
+  per-baseline encoding.  With ``native_dest`` the C++ packetizer of
+  :mod:`.native` builds and sends the same bytes.
 - :class:`CorrPartOutput`: subselected visibilities, ``nvis_per_packet``
   per packet with the baseline map in each header, or one COR packet per
   dual-pol baseline (corr_output_part_block.py:346-401).
@@ -29,6 +30,7 @@ import numpy as np
 
 from ..ops.corr_subsel import subsel_output_sfreq
 from ..utils.proclog import PerfTimer
+from . import native
 from . import packets as pk
 
 
@@ -91,14 +93,27 @@ def _cor_header_fields(cfg, sync_time: int, spectra_id: int,
 
 
 class CorrFullOutput:
-    """Emit a slow-dump visibility matrix as full-correlation packets."""
+    """Emit a slow-dump visibility matrix as full-correlation packets.
+
+    ``native_dest=(ip, port)`` hands each dump to the C++ packetizer
+    (:func:`.native.cor_send_matrix`, :func:`.native.cor5c_send_matrix`),
+    which sends the same bytes as the Python encoder to that address with
+    the same ``max_mbps`` throttle; ``send`` is then not used.  The library
+    is loaded here, and a failure to build or load it raises.  (The JAX
+    sink falls back to the Python encoder instead; the packets would be the
+    same, but the fallback would hide which encoder a measurement timed.)
+    """
 
     def __init__(self, cfg, send=None, max_mbps: int = -1,
                  checkfile: str | None = None, checkfile_acc_len: int = 0,
+                 native_dest: tuple[str, int] | None = None,
                  use_cor_fmt: bool = False):
         self.cfg = cfg
         self.send = send
         self.max_mbps = max_mbps
+        self.native_dest = native_dest
+        if native_dest is not None:
+            native.load()
         self.use_cor_fmt = use_cor_fmt
         # write_autos: a directory for per-dump autocorrelation spectra
         # (.npy), None = off; set by the output command block
@@ -181,6 +196,9 @@ class CorrFullOutput:
         packet.  Returns packets sent."""
         if self.autos_path:
             self._write_autos_planes(np.asarray(vis_re), spectra_id)
+        if self.native_dest is not None:
+            return self._send_native(vis_re, vis_im, sync_time, spectra_id,
+                                     acc_len)
         if self.send is None:
             return 0
         cfg = self.cfg
@@ -216,9 +234,36 @@ class CorrFullOutput:
                 self.send(pkt)
                 self.throttle.account(8 * len(pkt))
                 npkt += 1
-        hdr_nbyte = 32 if self.use_cor_fmt else 56
-        self.perf.mark_process(npkt * (hdr_nbyte + npol * npol * nchan * 8))
+        self._mark(npkt)
         return npkt
+
+    def _send_native(self, vis_re, vis_im, sync_time: int, spectra_id: int,
+                     acc_len: int) -> int:
+        """The C++ packetizer's branch of :meth:`send_matrix_planes`
+        (``caltech_bifrost_dsp_tpu/io/sink.py:127-162``)."""
+        cfg = self.cfg
+        ip, port = self.native_dest
+        self.perf.tick()
+        if self.use_cor_fmt:
+            fn, secs, freq, time_tag, navg = _cor_header_fields(
+                cfg, sync_time, spectra_id, acc_len)
+            npkt = native.cor5c_send_matrix(
+                vis_re, vis_im, cfg.nstand, cfg.npol, fn, secs, freq,
+                time_tag, navg, dest_ip=ip, port=port,
+                max_mbps=float(self.max_mbps))
+        else:
+            npkt = native.cor_send_matrix(
+                vis_re, vis_im, cfg.nstand, cfg.npol, sync_time, spectra_id,
+                cfg.nchan * cfg.chan_bw_hz, cfg.sfreq_hz, acc_len, cfg.chan0,
+                dest_ip=ip, port=port, max_mbps=float(self.max_mbps))
+        self._mark(npkt)
+        return npkt
+
+    def _mark(self, npkt: int) -> None:
+        cfg = self.cfg
+        hdr_nbyte = 32 if self.use_cor_fmt else 56
+        self.perf.mark_process(
+            npkt * (hdr_nbyte + cfg.npol * cfg.npol * cfg.nchan * 8))
 
 
 class CorrPartOutput:

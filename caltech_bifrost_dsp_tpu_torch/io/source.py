@@ -1,6 +1,8 @@
-"""Synthetic sources (port of ``caltech_bifrost_dsp_tpu/io/source.py::
-DummySource`` and ``ADCSource``) with the interface the streaming driver
-consumes: ``header()``, ``stream()`` and the zero-copy ``fill_into()``.
+"""Sources (port of ``caltech_bifrost_dsp_tpu/io/source.py``): the synthetic
+``SyntheticSource`` (the JAX ``DummySource``) and ``ADCSource`` with the
+interface the streaming driver consumes, ``header()``, ``stream()`` and the
+zero-copy ``fill_into()``, and :class:`UdpSnap2Source`, the pure-Python
+snap2 reassembler (the native engine is :mod:`.native`).
 
 Modes follow the reference's DummySource (dummy_source_block.py):
 ``ramp`` (byte counter), ``random`` (``randint(0, 255)`` from a seeded
@@ -20,6 +22,7 @@ import numpy as np
 from ..config import XEngineConfig
 
 from ..verification import golden
+from . import packets as pk
 
 
 def sequence_header(cfg: XEngineConfig, seq0: int, sync_time: int = 0,
@@ -208,3 +211,89 @@ class ADCSource:
         self._fill_i += 1
         out[...] = self.gulp(i)
         return i * self.cfg.ntime_gulp
+
+
+class UdpSnap2Source:
+    """Socket-based snap2 packet capture reassembling gulps: the
+    pure-Python counterpart of the native engine (:mod:`.native`), for tests
+    and low rates.  Packets for the same ``seq`` land at [time, chan block,
+    pol block] of the gulp that owns them."""
+
+    _MAX_PENDING_GULPS = 4  # stash window for early next-gulp packets
+
+    def __init__(self, cfg: XEngineConfig, sock,
+                 ntime_gulp: int | None = None, timeout_s: float = 5.0):
+        self.cfg = cfg
+        self.sock = sock
+        self.ntime_gulp = ntime_gulp or cfg.ntime_gulp
+        self.timeout_s = timeout_s
+        sock.settimeout(timeout_s)
+        self._pending: dict[int, np.ndarray] = {}
+        self._filled: dict[int, set] = {}  # landing keys of stashed gulps
+        self._expected = None  # packets per gulp, from the first header
+        self.ngood_bytes = 0
+        self.nmissing = 0
+
+    def capture_gulp(self, seq_start: int) -> np.ndarray:
+        """Blocking: assemble the gulp covering [seq_start, seq_start + g).
+        Missing packets stay zero and are counted in ``nmissing``.
+
+        Packets of later gulps drained meanwhile are stashed (up to
+        ``_MAX_PENDING_GULPS`` ahead) and land when their gulp is asked
+        for; a duplicate datagram lands once (landing sets, not counts)."""
+        cfg = self.cfg
+        g = self.ntime_gulp
+        # drop stashes the caller skipped past
+        for k in [k for k in self._pending if k < seq_start]:
+            self._pending.pop(k, None)
+            self._filled.pop(k, None)
+        buf = self._pending.pop(seq_start, None)
+        landed = self._filled.pop(seq_start, None) or set()
+        if buf is None:
+            buf = np.zeros((g, cfg.nchan, cfg.ninput), np.uint8)
+        expected = self._expected
+        deadline = time.monotonic() + self.timeout_s
+        while time.monotonic() < deadline:
+            if expected is not None and len(landed) >= expected:
+                break
+            try:
+                pkt = self.sock.recv(65536)
+            except OSError:
+                break
+            hdr, payload = pk.decode_snap2(pkt)
+            if expected is None:
+                npkt_per_time = ((cfg.nchan // hdr.nchan)
+                                 * (cfg.ninput // hdr.npol))
+                expected = self._expected = npkt_per_time * g
+            t = hdr.seq - seq_start
+            if t < 0:
+                continue  # stale packet of an emitted gulp
+            c0 = hdr.chan_block_id * hdr.nchan
+            # the key is relative to the packet's own gulp (t % g), so a
+            # stashed key matches the one the region gets when that gulp
+            # becomes current
+            key = (int(t % g), int(c0), int(hdr.pol0))
+            if t >= g:  # a packet of a later gulp: stash it
+                if t >= g * (self._MAX_PENDING_GULPS + 1):
+                    continue
+                base = seq_start + (t // g) * g
+                pend = self._pending.get(base)
+                if pend is None:
+                    pend = self._pending[base] = np.zeros_like(buf)
+                    self._filled[base] = set()
+                if key in self._filled[base]:
+                    continue  # duplicate
+                self._filled[base].add(key)
+                pend[t - (base - seq_start), c0:c0 + hdr.nchan,
+                     hdr.pol0:hdr.pol0 + hdr.npol] = payload
+                self.ngood_bytes += payload.nbytes
+                continue
+            if key in landed:
+                continue  # duplicate
+            landed.add(key)
+            buf[t, c0:c0 + hdr.nchan,
+                hdr.pol0:hdr.pol0 + hdr.npol] = payload
+            self.ngood_bytes += payload.nbytes
+        if expected is not None and len(landed) < expected:
+            self.nmissing += expected - len(landed)
+        return buf

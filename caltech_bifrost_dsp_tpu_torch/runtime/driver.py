@@ -519,6 +519,11 @@ class XEnginePipeline:
             if dest is None:
                 continue  # backpressure or shutdown; _stop re-checked
             t = self.source.fill_into(dest)
+            if t is None:  # capture poll timeout, or the source stopped
+                self.staging.release_span(dest)
+                if getattr(self.source, "_stopped", False):
+                    return
+                continue
             if self.fx_mode:
                 gulp = dest.view(self._adc_dtype).reshape(-1, cfg.ninput)
             else:
@@ -962,5 +967,9 @@ class XEnginePipeline:
             raise RuntimeError("pipeline stage failed") from self._errors[0]
 
     def shutdown(self):
+        """Stop every stage: the flag, the source (a capture blocked in a
+        poll or holding a socket), then the staging ring."""
         self._stop.set()
+        if hasattr(self.source, "stop"):
+            self.source.stop()
         self.staging.shutdown()

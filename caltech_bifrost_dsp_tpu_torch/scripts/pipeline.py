@@ -2,9 +2,13 @@
 
 The analog of ``caltech_bifrost_dsp_tpu/scripts/pipeline.py`` (the
 reference's ``lwa352-pipeline.py`` operator entry point): assembles one
-:class:`..runtime.driver.XEnginePipeline` (synthetic source -> fused step
-on the card -> packet sinks) from the same flags, wires the in-process
-control store and the monitor bridge, installs signal handlers and runs.
+:class:`..runtime.driver.XEnginePipeline` (source -> fused step on the
+card -> packet sinks) from the same flags, wires the in-process control
+store and the monitor bridge, installs signal handlers and runs.  The
+source is the native UDP capture (``io/native.py::CaptureSource`` on
+``--ip``/``--port``, AF_XDP with ``--xdp IFNAME``; with ``--fx``,
+``AdcCaptureSource`` of int8 ADC frames), or with ``--fakesource`` the
+synthetic stream.
 
 ``--testdatacorr`` gates every slow dump by exact equality (exit 1 on a
 mismatch), ``--testcorr`` compares every fast dump with a numpy
@@ -15,11 +19,14 @@ runs the plain versions of the kernels.  ``--mesh TIMExCHAN`` runs the
 sharded programs of ``parallel/mesh.py``: on the host's CUDA devices, one
 per shard (fewer devices than shards: exit 2 with the count, nothing is
 placed silently), or with ``--device cpu`` with every shard on the CPU.
-Not ported yet, and refused with exit code 2: ``--xdp``, UDP capture
-(running without ``--fakesource``), ``--etcdhost``, ``--bufgbytes`` > 0
-and ``--dump-direct``.
+Not ported yet, and refused with exit code 2: ``--etcdhost``,
+``--bufgbytes`` > 0 and ``--dump-direct``.
 
 Examples::
+
+  # capture snap2 packets on port 10000 of every interface, COR out
+  python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline \\
+      --port 10000 --corr-dest 10.1.1.1:10001 --cor-fmt
 
   # golden-vector verification run on the GPU, COR packets to a receiver
   python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline --fakesource \\
@@ -60,7 +67,7 @@ from ..config import LWA352, TPU_ENGINES, XEngineConfig
 from ..control.command import CommandBlock
 from ..control.monitor import MonitorBridge
 from ..control.store import connect
-from ..io import sink
+from ..io import native, sink
 from ..io.source import ADCSource, SyntheticSource
 from ..parallel.mesh import make_mesh
 from ..runtime.driver import XEnginePipeline
@@ -104,8 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--autostartat", type=int, default=0,
                    help="-1 starts on the next boundary")
     p.add_argument("--fakesource", action="store_true",
-                   help="use the synthetic source (required: UDP capture "
-                        "is not ported)")
+                   help="use the synthetic source instead of UDP capture")
     p.add_argument("--testdatain", type=str, default=None,
                    help="golden input .dat file to loop")
     p.add_argument("--testdatacorr", type=str, default=None,
@@ -113,6 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--testdatacorr_acc_len", type=int, default=2400)
     p.add_argument("--target_throughput", type=float, default=1000.0,
                    help="synthetic source rate cap, Gb/s")
+    p.add_argument("--ip", type=str, default="0.0.0.0",
+                   help="capture: address to bind")
+    p.add_argument("--port", type=int, default=10000,
+                   help="capture: UDP port of the snap2 packets")
     p.add_argument("--corr-dest", type=str, default=None,
                    metavar="IP:PORT")
     p.add_argument("--subsel-dest", type=str, default=None)
@@ -184,7 +194,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "mesh, e.g. 2x4: one CUDA device per shard, or "
                         "every shard on the CPU with --device cpu")
     p.add_argument("--xdp", type=str, default=None, metavar="IFNAME",
-                   help="not ported yet")
+                   help="AF_XDP kernel-bypass capture on this interface "
+                        "(the reference's --ibverbs UDPVerbsCapture "
+                        "analog); packets must fit the 4 KB UMEM chunk "
+                        "unless the kernel binds multi-buffer")
+    p.add_argument("--xdp-queue", type=int, default=0,
+                   help="NIC queue id for --xdp")
     p.add_argument("--etcdhost", type=str, default=None,
                    help="not ported yet (the in-process store is used)")
     p.add_argument("-l", "--logfile", type=str, default=None)
@@ -219,11 +234,9 @@ class SlowDumpKeeper:
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit 2 on every flag whose machinery is not ported yet."""
-    unported = [("--xdp", args.xdp),
-                ("--etcdhost", args.etcdhost),
+    unported = [("--etcdhost", args.etcdhost),
                 ("--bufgbytes > 0", args.bufgbytes > 0),
-                ("--dump-direct", args.dump_direct),
-                ("UDP capture (no --fakesource)", not args.fakesource)]
+                ("--dump-direct", args.dump_direct)]
     for flag, given in unported:
         if given:
             parser.error(f"{flag} is not ported yet")
@@ -265,7 +278,19 @@ def build_pipeline(args, mesh=None
         adc_dtype=args.adc_dtype, **engines)
     CommandBlock.set_id(args.pipelineid)
     store = connect(None)
-    if args.fx:
+    if args.fx and not args.fakesource:
+        # int8 digitizer frames over the snap2 wire format
+        if args.adc_dtype != "int8":
+            raise SystemExit("--fx UDP capture requires --adc-dtype int8 "
+                             "(the digitizer width); f32 is fakesource-only")
+        src = native.AdcCaptureSource(cfg, args.ip, args.port,
+                                      xdp_ifname=args.xdp,
+                                      xdp_queue=args.xdp_queue)
+    elif not args.fakesource:
+        src = native.CaptureSource(cfg, args.ip, args.port,
+                                   xdp_ifname=args.xdp,
+                                   xdp_queue=args.xdp_queue)
+    elif args.fx:
         amp = args.adc_amplitude
         if amp is None:
             amp = 32.0 if args.adc_dtype == "int8" else 4.0
@@ -352,6 +377,8 @@ def main(argv=None) -> int:
         pipe.run(args.ngulp)
     finally:
         pipe.monitor_bridge.stop()
+        if hasattr(pipe.source, "close"):
+            pipe.source.close()
     if keeper is not None and keeper.planes is not None:
         np.savez(args.save_slow, real=keeper.planes[0],
                  imag=keeper.planes[1])

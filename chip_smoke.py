@@ -8,9 +8,10 @@ shapes (704 inputs, 192 channels, 2400-spectra window, 32 beams; the
 channelizer also at the 4096-channel F-engine width; the correlators
 also at a ragged shape, and the two that unpack their own tiles,
 ``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
-after the compiler's report of their registers and spills), then drives
-five paths of the port, each with the kernel launch counts set to 0 just
-before it and read just after:
+after the compiler's report of their registers and spills; the gather
+also timed alone, as a CUDA graph of bare launches, beside its wrapper),
+then drives six paths of the port, each with the kernel launch counts set
+to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
   0xdeadbeef), three fast windows at 192 channels and one at 184;
@@ -40,7 +41,16 @@ before it and read just after:
   integers (and the packed bytes after the corner-turn) equal to the
   unsharded step's and beam products within rtol 1e-4; then
   ``XEnginePipeline(mesh=2x2)`` over the driver path's windows with every
-  sink, its packets byte for byte those of the unsharded driver run.
+  sink, its packets byte for byte those of the unsharded driver run;
+- wire: the driver again with its COR slow dump through the C++ packetizer
+  of ``io/native.py`` (``CorrFullOutput(native_dest=...)``, rate cap
+  picked by sending the plain slow dump alone first) to a receiver in a
+  process of its own, then fed by ``native.CaptureSource`` from a snap2
+  blaster in another process (the same golden windows over loopback, paced
+  by ``delay_ns``, 0 packets missing), each fast dump equal to the plain
+  correlator's and every sink's packets byte for byte those of the
+  Python-encoder run; last, one int8 FX window over ``AdcCaptureSource``,
+  its packets those of the same samples fed in process.
 
 A last run drives the two correlator schedules that no engine name
 selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
@@ -59,20 +69,29 @@ They leave out the unpack, the FIR, the epilogue and the requantizer, so
 It times each kernel beside its plain version and its bound (the larger
 of bytes moved over the memory rate and operations over the peak rate),
 the X/B step (both correlator engines) and the FX step per window,
-unsharded and sharded, and the driver's host time per window.  The last line is ``{"ok": true, "device": ...}``; any
+unsharded and sharded, and the driver's host time per window (with the C++
+and the Python COR encoders) and captured rate.  The last line is
+``{"ok": true, "device": ...}``; any
 failure raises and exits non-zero.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
+import faulthandler
 import hashlib
 import json
 import math
+import multiprocessing
+import re
+import shutil
 import socket
+import struct
 import subprocess
 import sys
 import threading
 import time
+from multiprocessing import shared_memory
 
 import numpy as np
 import torch
@@ -80,6 +99,7 @@ import torch
 from caltech_bifrost_dsp_tpu_torch.config import LWA352, TPU_ENGINES
 from caltech_bifrost_dsp_tpu_torch.control.command import CommandBlock
 from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
+from caltech_bifrost_dsp_tpu_torch.io import native
 from caltech_bifrost_dsp_tpu_torch.io import packets as pk
 from caltech_bifrost_dsp_tpu_torch.io import sink
 from caltech_bifrost_dsp_tpu_torch.io.source import (ADCSource,
@@ -103,6 +123,7 @@ from caltech_bifrost_dsp_tpu_torch.ops.kernels import _build
 from caltech_bifrost_dsp_tpu_torch.parallel import mesh as pm
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
+from caltech_bifrost_dsp_tpu_torch.scripts import probe_subsel
 from caltech_bifrost_dsp_tpu_torch.verification import golden
 
 SEED = 0xdeadbeef
@@ -317,13 +338,7 @@ def phase_kernels(dev, card: str, results: dict) -> None:
     for a, b in zip(got, want):
         check(torch.equal(a, b), "subsel != plain")
     print("subsel_gather: exact int32, malformed pair included", flush=True)
-    nvis, nco = pairs.shape[0], nchan // cfg.nchan_sum
-    results["subsel_gather"].update(
-        **bound(8 * nvis * (nchan + nco + 1), 2 * nvis * nchan, "fp32"),
-        max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
-        ms=cuda_ms(lambda: cs.corr_subsel(fast, pairs, cfg.nchan_sum), 20),
-        plain_ms=cuda_ms(lambda: cs.corr_subsel_ref(fast, pairs,
-                                                    cfg.nchan_sum), 5))
+    phase_subsel(card, results, fast, pairs, got, want)
     del fast, slow, state
 
     err = 0.0
@@ -392,6 +407,41 @@ def phase_kernels(dev, card: str, results: dict) -> None:
                  "subsel_gather"):
         print_kernel(card, name, results[name], "per call at the production "
                      "shape")
+
+
+def phase_subsel(card: str, results: dict, vis: Vis, pairs, got,
+                 want) -> None:
+    """The gather's device time alone (a CUDA graph of bare launches on
+    preallocated outputs, ``scripts/probe_subsel.py``) and through its
+    wrapper, beside its byte bound; the compiler's report of each
+    instantiation."""
+    cfg = LWA352
+    nchan_sum = cfg.nchan_sum
+    nvis, nco = pairs.shape[0], cfg.nchan // nchan_sum
+    ptxas_report(card, {"subsel_gather_kernel": 5})
+    out = Vis(torch.empty_like(got.real), torch.empty_like(got.imag))
+    launch = probe_subsel.bare_launch(_build.library().cbd_subsel_gather,
+                                      vis, pairs, nchan_sum, out)
+    device_ms = probe_subsel.graph_ms(launch)
+    check(torch.equal(out.real, want.real) and torch.equal(out.imag,
+                                                          want.imag),
+          "subsel: bare launches != plain")
+    wrapper_ms, host_ms = probe_subsel.wrapper_ms(vis, pairs, nchan_sum)
+    r = results["subsel_gather"]
+    r.update(**bound(8 * nvis * (cfg.nchan + nco + 1), 2 * nvis * cfg.nchan,
+                     "fp32"),
+             max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
+             ms=device_ms, wrapper_ms=wrapper_ms, wrapper_host_ms=host_ms,
+             plain_ms=cuda_ms(lambda: cs.corr_subsel_ref(vis, pairs,
+                                                         nchan_sum), 5))
+    print(f"[{card}] subsel_gather at {nvis} pairs x {cfg.nchan} channels "
+          f"summed by {nchan_sum}: device alone {device_ms:.5f} ms (a CUDA "
+          f"graph of bare launches, L2 warm), through the wrapper "
+          f"{wrapper_ms:.5f} ms under CUDA events ({host_ms:.5f} ms of host "
+          f"time a call); byte bound {r['bound_ms']:.5f} ms, share "
+          f"{r['bound_ms'] / device_ms:.2f} alone, "
+          f"{r['bound_ms'] / wrapper_ms:.2f} through the wrapper",
+          flush=True)
 
 
 def print_kernel(card: str, name: str, r: dict, where: str) -> None:
@@ -897,28 +947,33 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
     matmul_yardstick(card, cfg.ninput * cfg.acc_len, L)
 
 
-def ptxas_report(card: str, kernels: tuple) -> None:
+def ptxas_report(card: str, kernels: dict) -> None:
     """The compiler's report (registers, spills, static shared memory) of
-    each of ``kernels`` (names of __global__ functions), from the log the
-    build keeps beside the library."""
+    each of ``kernels`` (names of __global__ functions, each with the
+    number of its template instantiations), from the log the build keeps
+    beside the library."""
     log = _build.BUILD_DIR / f"libcbd_kernels_{_build.source_hash()}.log"
     lines = log.read_text().splitlines()
-    for kernel in kernels:
+    for kernel, count in kernels.items():
         starts = [k for k, line in enumerate(lines)
                   if "Compiling entry function" in line and kernel in line]
-        check(len(starts) == 1, f"ptxas report of {kernel} not found")
-        report = []
-        for line in lines[starts[0] + 1:]:
-            if "Compiling entry function" in line:
-                break
-            if "registers" in line or "spill" in line:
-                report.append(line.split(":", 1)[-1].strip())
-        print(f"[{card}] ptxas {kernel}: {'; '.join(report)}", flush=True)
+        check(len(starts) == count, f"ptxas report of {kernel}: "
+              f"{len(starts)} entries, not {count}")
+        for start in starts:
+            report = []
+            for line in lines[start + 1:]:
+                if "Compiling entry function" in line:
+                    break
+                if "registers" in line or "spill" in line:
+                    report.append(line.split(":", 1)[-1].strip())
+            args = re.search(r"ILi(\d+)EE", lines[start])
+            name = kernel + (f"<{args.group(1)}>" if args else "")
+            print(f"[{card}] ptxas {name}: {'; '.join(report)}", flush=True)
 
 
 def phase_triu(dev, card: str, results: dict) -> None:
     """The three gulp correlators against their plain versions."""
-    ptxas_report(card, ("corr_triu_kernel", "corr_rows_kernel"))
+    ptxas_report(card, {"corr_triu_kernel": 1, "corr_rows_kernel": 1})
     phase_gulp(dev, card, results, "corr_triu", corr_triu, corr_triu_ref,
                TILE)
     phase_gulp(dev, card, results, "corr_blk", cblk.corr_blk,
@@ -1159,24 +1214,51 @@ def packet_digests(streams: dict) -> dict:
     return out
 
 
+class DriverRun:
+    """What one driver run gives back: the launch counts, the digest of
+    each sink's packets, the wall time, the host time of each window and
+    the sustained rate."""
+
+    def __init__(self, counts, digests, wall, per_window, gbps):
+        self.counts = counts
+        self.digests = digests
+        self.wall = wall
+        self.per_window = per_window
+        self.gbps = gbps
+
+
 def run_driver(dev, card: str, label: str, engines: dict, blocks,
-               gains_np, truth, slow, mesh=None) -> tuple[dict, dict, float]:
+               gains_np, truth, slow, mesh=None, cor_mbps=None,
+               capture=None, fast=None) -> DriverRun:
     """One driver run: launch counts to 0, XEnginePipeline over the
     golden windows with every sink (sharded over ``mesh`` if given),
-    counts read, products checked.  Returns the counts, the digest of each
-    sink's packets and the run's wall time."""
+    counts read, products checked.
+
+    ``cor_mbps`` (a rate cap, -1 for none): the COR slow dump goes through
+    the C++ packetizer (``native_dest``) to a receiver in a process of its
+    own.  ``capture``: a :class:`Blaster` sends the windows as snap2
+    packets to a ``native.CaptureSource``, the run's source.  ``fast``:
+    the plain fast dump of each window on the card, held against the
+    pipeline's at each dump."""
     cfg = DRIVER_CFG.replace(**engines)
     nwin = len(blocks)
+    nbl = cfg.nstand * (cfg.nstand + 1) // 2
     CommandBlock.reset_instance_counts()
     rx = {name: Receiver() for name in ("subsel", "pbeam", "ibeam")}
     for r in rx.values():
         r.start()
-    cor = []
+    cor, cor_rx = [], None
+    if cor_mbps is None:
+        corr_out = sink.CorrFullOutput(cfg, send=cor.append, use_cor_fmt=True)
+    else:
+        cor_rx = CorReceiver(nbl, cor_packet_size(cfg))
+        corr_out = sink.CorrFullOutput(cfg, native_dest=cor_rx.addr,
+                                       max_mbps=cor_mbps, use_cor_fmt=True)
+    src = GoldenSource(cfg, blocks) if capture is None else capture.source
     store = MemoryStore()
     pipe = XEnginePipeline(
-        cfg, GoldenSource(cfg, blocks), store=store, sync_time=SYNC_TIME,
-        corr_outputs=[sink.CorrFullOutput(cfg, send=cor.append,
-                                          use_cor_fmt=True)],
+        cfg, src, store=store, sync_time=SYNC_TIME,
+        corr_outputs=[corr_out],
         subsel_outputs=[sink.CorrPartOutput(
             cfg, send=sink.UdpSender(*rx["subsel"].addr))],
         pbeam_outputs=[sink.PBeamOutput(
@@ -1185,6 +1267,19 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
         ibeam_outputs=[sink.IBeamOutput(
             cfg, send=sink.UdpSender(*rx["ibeam"].addr))],
         mesh=mesh, device="cuda")
+    fast_ok = []
+    if fast is not None:
+        emit = pipe._emit
+
+        def checked_emit(out, t, dec, slow_dec):
+            n = pipe.ndump_fast
+            emit(out, t, dec, slow_dec)
+            if pipe.ndump_fast > n:
+                got, want = pipe._dense("fast"), fast[dec.seq0 // cfg.acc_len]
+                fast_ok.append(torch.equal(got.real, want.real)
+                               and torch.equal(got.imag, want.imag))
+
+        pipe._emit = checked_emit
     t0 = time.perf_counter()
     load_gains(pipe, store, gains_np)
     command(store, pipe.subsel_cmd.command_key, "bl",
@@ -1195,12 +1290,33 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
     ngulp = nwin * cfg.acc_len // cfg.ntime_gulp
     zero_counts()
     t0 = time.perf_counter()
-    pipe.run(ngulp, timeout_s=600)
+    if capture is not None:
+        capture.go()
+    try:
+        pipe.run(ngulp, timeout_s=600 if capture is None else 240)
+    except TimeoutError:
+        if capture is not None:
+            print(f"[driver {label}] stalled after {pipe.ndump_fast} fast "
+                  f"dumps; {capture.status()}", flush=True)
+            faulthandler.dump_traceback(sys.stdout)
+        raise
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    missing = None
+    if capture is not None:
+        try:
+            capture.finish(f"driver {label}")
+        except PacketsMissing as e:
+            missing = e
+        finally:
+            src.close()
+    if cor_rx is not None:
+        cor = cor_rx.collect()
     sub_pkts, pb_pkts, ib_pkts = (rx[n].stop() for n in
                                   ("subsel", "pbeam", "ibeam"))
+    if missing is not None:
+        raise missing
     print(f"[driver {label}] kernel launches: {counts}", flush=True)
     correlator = {"pallas_triu": "corr_triu", "pallas_blk": (
         DEFAULT_CORR if mesh is None else "corr_blk")}[engines["corr_engine"]]
@@ -1209,8 +1325,13 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
     check((pipe.ndump_fast, pipe.ndump_slow) == (nwin, 1),
           f"[driver {label}] dumps {pipe.ndump_fast} fast, "
           f"{pipe.ndump_slow} slow")
-    nbl = cfg.nstand * (cfg.nstand + 1) // 2
-    check(len(cor) == nbl, f"[driver {label}] {len(cor)} COR packets")
+    if fast is not None:
+        check(fast_ok == [True] * nwin,
+              f"[driver {label}] fast dumps vs plain: {fast_ok}")
+        print(f"[driver {label}] {nwin} fast dumps equal the plain "
+              f"correlator's exactly", flush=True)
+    check(len(cor) == nbl, f"[driver {label}] {len(cor)} COR packets of "
+          f"{nbl}")
     cube = pk.cor_scatter_matrix(cor, cfg.nstand, cfg.npol)
     for k, plane in enumerate(slow):
         want = plane.reshape(cfg.nchan, cfg.nstand, cfg.npol, cfg.nstand,
@@ -1220,8 +1341,11 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
     digests = packet_digests({"cor": cor, "subsel": sub_pkts,
                               "pbeam": pb_pkts, "ibeam": ib_pkts})
     del cube, cor
-    print(f"[driver {label}] COR slow dump ({nbl} packets) scatters to the "
-          f"plain slow dump exactly", flush=True)
+    print(f"[driver {label}] COR slow dump ({nbl} packets"
+          + (" from the Python encoder" if cor_rx is None else
+             f" from the C++ packetizer, max_mbps {cor_mbps}, received in "
+             f"another process") + ") scatters to the plain slow dump "
+          "exactly", flush=True)
     npkt = (nwin * -(-cfg.nvis_out // 16), nwin * cfg.nbeam // 2 *
             cfg.acc_len // cfg.ntime_sum, nwin * cfg.acc_len)
     check((len(sub_pkts), len(pb_pkts), len(ib_pkts)) == npkt,
@@ -1255,14 +1379,14 @@ def run_driver(dev, card: str, label: str, engines: dict, blocks,
           + f"; {wall:.3f} s for {nwin} windows and the slow dump = "
           f"{gbps:.2f} Gb/s sustained (real-time bar "
           f"{cfg.input_gbps:.1f} Gb/s)", flush=True)
-    return counts, digests, wall
+    return DriverRun(counts, digests, wall, per_window, gbps)
 
 
 def run_driver_path(dev, card: str, blocks, gains_np) -> tuple:
     """The fourth path: the driver in both engine sets over the same
     golden windows.  Returns the launch counts summed over both runs, the
-    plain products the runs were held to (for the mesh driver run) and the
-    ``TPU_ENGINES`` run's packet digests and wall time."""
+    plain products the runs were held to (for the later driver runs) and
+    the ``TPU_ENGINES`` run (:class:`DriverRun`)."""
     cfg = DRIVER_CFG
     gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
     pairs = torch.from_numpy(cs.baselines_to_inputs(
@@ -1274,12 +1398,387 @@ def run_driver_path(dev, card: str, blocks, gains_np) -> tuple:
     sys.setswitchinterval(5e-4)
     try:
         for label, engines in DRIVER_ENGINES.items():
-            counts, digests, wall = run_driver(dev, card, label, engines,
-                                               blocks, gains_np, truth, slow)
-            total = {name: total[name] + counts[name] for name in KERNELS}
+            run = run_driver(dev, card, label, engines, blocks, gains_np,
+                             truth, slow)
+            total = {name: total[name] + run.counts[name]
+                     for name in KERNELS}
     finally:
         sys.setswitchinterval(switch)
-    return total, truth, slow, digests, wall
+    return total, truth, slow, run
+
+
+def free_port() -> int:
+    """A UDP port the operating system reports free on 127.0.0.1."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _IoVec(ctypes.Structure):
+    _fields_ = [("base", ctypes.c_void_p), ("len", ctypes.c_size_t)]
+
+
+class _MsgHdr(ctypes.Structure):
+    _fields_ = [("name", ctypes.c_void_p), ("namelen", ctypes.c_uint32),
+                ("iov", ctypes.POINTER(_IoVec)), ("iovlen", ctypes.c_size_t),
+                ("control", ctypes.c_void_p), ("controllen", ctypes.c_size_t),
+                ("flags", ctypes.c_int)]
+
+
+class _MMsgHdr(ctypes.Structure):
+    _fields_ = [("hdr", _MsgHdr), ("len", ctypes.c_uint)]
+
+
+def _receive_cor(conn, expected: int, size: int) -> None:
+    """In a process of its own: bind a loopback UDP socket with as large a
+    receive buffer as the host allows, report (port, buffer bytes), read
+    datagrams of up to ``size`` bytes straight into one preallocated buffer
+    with ``recvmmsg`` (up to 256 a call; a kernel timeout of 5 s once the
+    first has come, 120 s before) until ``expected`` arrived or the stream
+    stops, and send back their lengths and their bytes."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    want = 1 << 30
+    try:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUFFORCE, want)
+    except (AttributeError, PermissionError):
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, want)
+    sock.bind(("127.0.0.1", 0))
+
+    def kernel_timeout(seconds: int) -> None:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVTIMEO,
+                        struct.pack("ll", seconds, 0))
+
+    buf = (ctypes.c_char * (expected * size))()
+    iovs = (_IoVec * expected)()
+    msgs = (_MMsgHdr * expected)()
+    base = ctypes.addressof(buf)
+    for k in range(expected):
+        iovs[k].base, iovs[k].len = base + k * size, size
+        msgs[k].hdr.iov = ctypes.pointer(iovs[k])
+        msgs[k].hdr.iovlen = 1
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.recvmmsg.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                              ctypes.c_int, ctypes.c_void_p]
+    kernel_timeout(120)
+    conn.send((sock.getsockname()[1],
+               sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)))
+    got = 0
+    while got < expected:
+        n = libc.recvmmsg(sock.fileno(),
+                          ctypes.addressof(msgs) + got * ctypes.sizeof(
+                              _MMsgHdr), min(256, expected - got), 0, None)
+        if n <= 0:  # the kernel timeout: the stream has stopped
+            break
+        if got == 0:
+            kernel_timeout(5)
+        got += n
+    sock.close()
+    conn.send([msgs[k].len for k in range(got)])
+    conn.send_bytes(memoryview(buf)[:got * size])
+
+
+class CorReceiver:
+    """COR packets of ``size`` bytes received by another process
+    (:func:`_receive_cor`), so that the receiver shares no interpreter with
+    the pipeline."""
+
+    def __init__(self, expected: int, size: int):
+        ctx = multiprocessing.get_context("spawn")
+        self.size = size
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_receive_cor, daemon=True,
+                                args=(child, expected, size))
+        self.proc.start()
+        check(self.conn.poll(120), "COR receiver did not start")
+        port, self.rcvbuf = self.conn.recv()
+        self.addr = ("127.0.0.1", port)
+
+    def collect(self) -> list:
+        check(self.conn.poll(600), "COR receiver did not finish")
+        lengths = self.conn.recv()
+        raw = self.conn.recv_bytes()
+        self.proc.join(30)
+        check(all(n == self.size for n in lengths),
+              f"COR packets of other sizes than {self.size}: "
+              f"{sorted(set(lengths))}")
+        size = self.size
+        return [raw[k * size:(k + 1) * size] for k in range(len(lengths))]
+
+
+def cor_packet_size(cfg) -> int:
+    """Bytes of one COR (Mark5C) packet: 32 of header, int32 re, im."""
+    return 32 + 8 * cfg.npol * cfg.npol * cfg.nchan
+
+
+def _blast(conn, shm_name: str, shape: tuple, ntime_gulp: int, port: int,
+           nchan_per_pkt: int, delay_ns: int) -> None:
+    """In a process of its own: the frames in shared memory as snap2
+    packets, one ``native.transmit_gulp`` per gulp (sequence numbers 0,
+    ntime_gulp, ...), then the last gulp twice more with the next sequence
+    numbers, which releases a last gulp with a lost packet.  Sends back
+    (packets sent, seconds of sending)."""
+    shm = shared_memory.SharedMemory(name=shm_name)
+    try:
+        frames = np.ndarray(shape, np.uint8, buffer=shm.buf)
+        ngulp = shape[0] // ntime_gulp
+        native.load()
+        conn.send("ready")
+        conn.recv()
+        sent, t0 = 0, time.perf_counter()
+        for k in range(ngulp + 2):
+            g = min(k, ngulp - 1)
+            sent += native.transmit_gulp(
+                "127.0.0.1", port, frames[g * ntime_gulp:(g + 1) * ntime_gulp],
+                seq0=k * ntime_gulp, nchan_per_pkt=nchan_per_pkt,
+                npol_per_pkt=shape[2], delay_ns=delay_ns)
+        conn.send((sent, time.perf_counter() - t0))
+        del frames
+    finally:
+        shm.close()
+
+
+class Capture:
+    """A capture source (``native.CaptureSource`` or ``AdcCaptureSource``)
+    on a free loopback port, fed by :func:`_blast` in a spawned process
+    from ``frames`` [ngulp * ntime_gulp, nchan, ninput] uint8 in shared
+    memory, paced to ``gbps`` of offered payload: the blaster sleeps every
+    16 rows of chan-block packets, 16 time samples of the gulp."""
+
+    def __init__(self, cfg, frames: np.ndarray, gbps: float,
+                 adc: bool = False, nchan_per_pkt: int = 8):
+        self.nbyte = frames.nbytes
+        self.gbps = gbps
+        self.delay_ns = int(16 * frames.shape[1] * frames.shape[2] * 8
+                            / gbps)
+        ngulp = frames.shape[0] // cfg.ntime_gulp
+        port = free_port()
+        cls = native.AdcCaptureSource if adc else native.CaptureSource
+        self.source = cls(cfg, "127.0.0.1", port, nbuf=ngulp + 3, poll_s=5.0)
+        self.shm = shared_memory.SharedMemory(create=True, size=frames.nbytes)
+        np.ndarray(frames.shape, np.uint8, buffer=self.shm.buf)[...] = frames
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_blast, daemon=True, args=(
+            child, self.shm.name, frames.shape, cfg.ntime_gulp, port,
+            nchan_per_pkt, self.delay_ns))
+        self.proc.start()
+        check(self.conn.poll(120) and self.conn.recv() == "ready",
+              "blaster did not start")
+
+    def go(self) -> None:
+        self.conn.send("go")
+
+    def status(self) -> str:
+        """What a stalled run needs said: the capture's counters and the
+        blaster's state."""
+        return (f"capture counters {self.source.stats()}; blaster alive "
+                f"{self.proc.is_alive()}, exit code {self.proc.exitcode}, "
+                f"result waiting {self.conn.poll()}; /dev/shm "
+                f"{shutil.disk_usage('/dev/shm')}")
+
+    def finish(self, label: str) -> dict:
+        """Wait for the blaster; print the pacing and the captured rate;
+        fail on any packet missing from a gulp the pipeline took."""
+        check(self.conn.poll(600), "blaster did not finish")
+        sent, seconds = self.conn.recv()
+        self.proc.join(30)
+        self.shm.close()
+        self.shm.unlink()
+        stats = self.source.stats()
+        print(f"[{label}] blaster in another process: "
+              f"{sent} snap2 packets, delay_ns {self.delay_ns} every 16 "
+              f"time samples ({self.gbps:.1f} Gb/s offered), sent in "
+              f"{seconds:.3f} s; {stats['ngood_bytes']} payload bytes "
+              f"captured = {8 * stats['ngood_bytes'] / seconds / 1e9:.2f} "
+              f"Gb/s over the host's loopback; capture counters {stats}",
+              flush=True)
+        if stats["nmissing"]:
+            raise PacketsMissing(f"[{label}] {stats['nmissing']} packets "
+                                 f"missing")
+        return stats
+
+
+class PacketsMissing(RuntimeError):
+    """A capture run that lost a packet: the run does not count."""
+
+
+#: offered rates of the capture run, Gb/s; the second only after a run
+#: that lost a packet
+WIRE_GBPS = (4.0, 1.5)
+#: rate caps of the C++ COR packetizer tried in turn, Mb/s (-1: none)
+COR_MBPS = (-1, 1500, 600)
+
+
+def pick_cor_rate(card: str, slow) -> float:
+    """The C++ packetizer alone: the plain slow dump as COR packets to a
+    receiver in another process, unthrottled first; returns the first rate
+    cap at which every packet arrives.  Prints each try."""
+    cfg = DRIVER_CFG
+    nbl = cfg.nstand * (cfg.nstand + 1) // 2
+    fields = sink._cor_header_fields(cfg, SYNC_TIME, 0, cfg.acc_len_slow)
+    for mbps in COR_MBPS:
+        rx = CorReceiver(nbl, cor_packet_size(cfg))
+        t0 = time.perf_counter()
+        n = native.cor5c_send_matrix(slow[0], slow[1], cfg.nstand, cfg.npol,
+                                     *fields, dest_ip=rx.addr[0],
+                                     port=rx.addr[1], max_mbps=mbps)
+        dt = time.perf_counter() - t0
+        got = rx.collect()
+        nbyte = sum(len(p) for p in got)
+        print(f"[{card}] C++ COR packetizer alone, max_mbps {mbps}: {n} "
+              f"packets sent in {dt:.3f} s ({8 * nbyte / dt / 1e9:.2f} Gb/s "
+              f"of the bytes received), {len(got)} received by another "
+              f"process (receive buffer {rx.rcvbuf} B)", flush=True)
+        if len(got) == nbl:
+            return mbps
+    raise RuntimeError("FAILED: COR packets lost at every rate cap")
+
+
+class AdcWindowSource(ADCSource):
+    """Given int8 ADC samples gulp by gulp, for the driver's zero-copy
+    ingest (``fill_into``)."""
+
+    def __init__(self, cfg, adc: np.ndarray):
+        super().__init__(cfg)
+        self.adc = adc
+
+    def fill_into(self, dest):
+        n, i = self.samples_per_gulp, self._fill_i
+        self._fill_i += 1
+        dest.view(np.int8).reshape(n, -1)[...] = self.adc[i * n:(i + 1) * n]
+        return i * self.cfg.ntime_gulp
+
+    def stream(self, ngulp: int, seq0: int = 0):
+        n = self.samples_per_gulp
+        for i in range(ngulp):
+            yield seq0 + i * self.cfg.ntime_gulp, self.adc[i * n:(i + 1) * n]
+
+
+def fx_driver(cfg, src, qs: float, gains_np) -> tuple[XEnginePipeline, dict]:
+    """An FX ``XEnginePipeline`` on the card with every sink collecting in
+    process and the integer gains commanded; returns it and its packets."""
+    CommandBlock.reset_instance_counts()
+    got = {"cor": [], "subsel": [], "pbeam": [], "ibeam": []}
+    store = MemoryStore()
+    pipe = XEnginePipeline(
+        cfg, src, store=store, sync_time=SYNC_TIME, fx_mode=True,
+        quant_scale=qs,
+        corr_outputs=[sink.CorrFullOutput(cfg, send=got["cor"].append,
+                                          use_cor_fmt=True)],
+        subsel_outputs=[sink.CorrPartOutput(cfg, send=got["subsel"].append)],
+        pbeam_outputs=[sink.PBeamOutput(
+            cfg, senders={b: got["pbeam"].append
+                          for b in range(cfg.nbeam // 2)})],
+        ibeam_outputs=[sink.IBeamOutput(cfg, send=got["ibeam"].append)],
+        device="cuda")
+    load_gains(pipe, store, gains_np)
+    return pipe, got
+
+
+def run_fx_capture(card: str, gains_np, qs: float) -> dict:
+    """One int8 FX window at full width as snap2 ADC frames over loopback
+    (``AdcCaptureSource``): every packet of its slow dump, subselection and
+    beams equal to the same samples fed in process.  Returns its counts."""
+    cfg = FX_CFG.replace(acc_len_slow=FX_CFG.acc_len)
+    adc = adc_windows(cfg, 1, SEED + 5)[0]
+    ngulp = cfg.acc_len // cfg.ntime_gulp
+    print(f"[capture FX] depth cut to one {cfg.acc_len}-spectra window of "
+          f"int8 ADC ({adc.nbytes} B) at the full {cfg.ninput} inputs x "
+          f"{cfg.nchan} channels, for the time limit", flush=True)
+    pipe, here = fx_driver(cfg, AdcWindowSource(cfg, adc), qs, gains_np)
+    pipe.run(ngulp, timeout_s=600)
+    frames = adc.view(np.uint8).reshape(cfg.acc_len, 2 * cfg.nchan,
+                                        cfg.ninput)
+    for k, gbps in enumerate(WIRE_GBPS):
+        capture = Capture(cfg, frames, gbps, adc=True)
+        pipe, udp = fx_driver(cfg, capture.source, qs, gains_np)
+        zero_counts()
+        t0 = time.perf_counter()
+        capture.go()
+        pipe.run(ngulp, timeout_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        try:
+            capture.finish("capture FX")
+        except PacketsMissing as e:
+            if k + 1 == len(WIRE_GBPS):
+                raise
+            print(f"[capture FX] {e}; again at a lower rate", flush=True)
+            continue
+        finally:
+            capture.source.close()
+        break
+    check(pipe.ndump_slow == 1 and all(here[k] == udp[k] for k in here),
+          "[capture FX] packets differ from the same samples in process")
+    for name in ("pfb_direct", DEFAULT_CORR, "beamform_products",
+                 "subsel_gather"):
+        check(counts[name] > 0, f"[capture FX] {name} not launched")
+    npkt = ", ".join(f"{len(v)} {k}" for k, v in udp.items())
+    print(f"[{card}] capture FX: {npkt} packets equal to the in-process "
+          f"run's; {wall:.3f} s for the "
+          f"window = {8 * adc.nbytes / wall / 1e9:.2f} Gb/s of ADC through "
+          f"the driver; kernel launches {counts}", flush=True)
+    return counts
+
+
+def run_wire_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
+                  ref: DriverRun) -> dict:
+    """The sixth path, the wire: the driver with its COR slow dump through
+    the C++ packetizer, then the driver fed by the native capture from a
+    blaster process (the same golden windows), then one FX window over
+    ``AdcCaptureSource``.  The packets of the first two equal the
+    ``TPU_ENGINES`` driver run's byte for byte.  Returns the launch
+    counts."""
+    cfg = DRIVER_CFG
+    mbps = pick_cor_rate(card, slow)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        run = run_driver(dev, card, "C++ COR", dict(TPU_ENGINES), blocks,
+                         gains_np, truth, slow, cor_mbps=mbps)
+        check(run.digests == ref.digests, f"[driver C++ COR] packets "
+              f"differ from the Python encoder's: {run.digests} vs "
+              f"{ref.digests}")
+        print(f"[{card}] driver TPU_ENGINES, same packets (SHA-256 per sink) "
+              f"from the C++ COR packetizer and from the Python encoder: "
+              f"host time per window " + ", ".join(
+                  f"{a:.3f}/{b:.3f} s" for a, b in zip(run.per_window,
+                                                      ref.per_window))
+              + f" (C++/Python); {run.gbps:.2f} against {ref.gbps:.2f} Gb/s "
+              f"sustained", flush=True)
+        total = dict(run.counts)
+        fast = []
+        for block in blocks:
+            packed = torch.from_numpy(block.reshape(
+                cfg.acc_len, cfg.nchan, cfg.ninput)).to(dev)
+            fast.append(correlate_chan_major(chan_major(packed, "tci")))
+            del packed
+        frames = np.concatenate([b.reshape(cfg.acc_len, cfg.nchan,
+                                           cfg.ninput) for b in blocks])
+        for k, gbps in enumerate(WIRE_GBPS):
+            capture = Capture(cfg, frames, gbps)
+            try:
+                run = run_driver(dev, card, "capture", dict(TPU_ENGINES),
+                                 blocks, gains_np, truth, slow,
+                                 cor_mbps=mbps, capture=capture, fast=fast)
+            except PacketsMissing as e:
+                if k + 1 == len(WIRE_GBPS):
+                    raise
+                print(f"[capture] {e}; again at a lower rate", flush=True)
+                continue
+            break
+        del frames, fast
+    finally:
+        sys.setswitchinterval(switch)
+    check(run.digests == ref.digests, f"[driver capture] packets differ "
+          f"from the golden-source run's: {run.digests} vs {ref.digests}")
+    print(f"[{card}] driver fed by the native capture: packets byte for "
+          f"byte those of the golden-source run; {run.gbps:.2f} Gb/s "
+          f"sustained through the driver", flush=True)
+    total = {name: total[name] + run.counts[name] for name in KERNELS}
+    fx = run_fx_capture(card, gains_np, qs)
+    return {name: total[name] + fx[name] for name in KERNELS}
 
 
 #: the fifth path: mesh shapes over one card, every shard on ``cuda:0``
@@ -1469,7 +1968,7 @@ def mesh_times(dev, card: str, gains, pairs) -> None:
 
 
 def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
-                  digests: dict, wall: float) -> dict:
+                  driver_ref: DriverRun) -> dict:
     """The fifth path: the sharded programs of ``parallel/mesh.py`` at
     full width with every shard on this card, and the driver over a 2x2
     mesh with every sink.  Returns the path's launch counts."""
@@ -1505,17 +2004,17 @@ def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
     switch = sys.getswitchinterval()
     sys.setswitchinterval(5e-4)
     try:
-        driver, got, mesh_wall = run_driver(
-            dev, card, "mesh 2x2", dict(TPU_ENGINES), blocks, gains_np,
-            truth, slow, mesh=mesh)
+        run = run_driver(dev, card, "mesh 2x2", dict(TPU_ENGINES), blocks,
+                         gains_np, truth, slow, mesh=mesh)
     finally:
         sys.setswitchinterval(switch)
-    check(got == digests, f"[driver mesh 2x2] packets differ from the "
-          f"unsharded driver run's: {got} vs {digests}")
+    check(run.digests == driver_ref.digests, f"[driver mesh 2x2] packets "
+          f"differ from the unsharded driver run's: {run.digests} vs "
+          f"{driver_ref.digests}")
     print(f"[driver mesh 2x2] COR, subsel, PBEAM and IBEAM packets byte for "
-          f"byte those of the unsharded TPU_ENGINES run ({mesh_wall:.3f} s "
-          f"against {wall:.3f} s wall)", flush=True)
-    return {name: programs[name] + driver[name] for name in KERNELS}
+          f"byte those of the unsharded TPU_ENGINES run ({run.wall:.3f} s "
+          f"against {driver_ref.wall:.3f} s wall)", flush=True)
+    return {name: programs[name] + run.counts[name] for name in KERNELS}
 
 
 def run_schedules_path(dev, cfg, blocks, slow) -> dict:
@@ -1600,17 +2099,17 @@ def main() -> int:
     # path 3, F-engine: the channelizer alone at 4096 channels
     fe = run_fengine(dev, card, results)
     # path 4, the operator entry point's threaded driver
-    dr, truth, slow, digests, wall = run_driver_path(dev, card, blocks,
-                                                     gains_np)
+    dr, truth, slow, ref = run_driver_path(dev, card, blocks, gains_np)
     # path 5, the device mesh: sharded programs and the mesh driver
-    me = run_mesh_path(dev, card, blocks, gains_np, qs, truth, slow,
-                       digests, wall)
+    me = run_mesh_path(dev, card, blocks, gains_np, qs, truth, slow, ref)
+    # path 6, the wire: C++ COR out, native capture in
+    wi = run_wire_path(dev, card, blocks, gains_np, qs, truth, slow, ref)
     # the correlator schedules without an engine name
     sc = run_schedules_path(dev, DRIVER_CFG, blocks, slow)
     del blocks, truth, slow
     launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
-                + sc[name] for name in KERNELS}
-    print(f"kernel launches over the five paths and the schedules run: "
+                + wi[name] + sc[name] for name in KERNELS}
+    print(f"kernel launches over the six paths and the schedules run: "
           f"{launches}", flush=True)
 
     cfg = LWA352

@@ -73,6 +73,25 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int)
     return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// a small card, so that a kernel sized to one wave strides over its work
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev)
+{
+    *dev = 0;
+    return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int)
+{
+    *value = 3;
+    return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* nblock, F, int, size_t)
+{
+    *nblock = 1;
+    return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t err)
 {
     return err == cudaSuccess ? "no error" : "invalid argument";

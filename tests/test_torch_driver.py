@@ -381,10 +381,20 @@ def test_cli_subsel_over_loopback_matches_jax_driver():
     ["--mesh", "2x4"], ["--xdp", "eth0"], ["--etcdhost", "localhost"],
     ["--bufgbytes", "1"], ["--dump-direct"], ["--no-fakesource"]])
 def test_cli_unported_flags_exit_2(extra, capsys):
+    """Every flag that is not ported exits 2.  ``--mesh``, ``--xdp`` and
+    capture (no ``--fakesource``) are ported: they exit 2 only for want of
+    the CUDA devices they would run on, before any socket is bound
+    (capture on the CPU: ``tests/test_torch_over_the_wire.py``)."""
+    if extra in (["--xdp", "eth0"], ["--no-fakesource"]):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        extra = [] if extra == ["--no-fakesource"] else extra
+        assert pipeline.main(["--device", "cuda", "--ngulp", "1"]
+                             + extra) == 2
+        assert "no CUDA device" in capsys.readouterr().err
+        return
     args = ["--fakesource", "--device", "cpu", "--ngulp", "1"]
     wanted = "not ported"
-    if extra == ["--no-fakesource"]:
-        args, extra = ["--device", "cpu", "--ngulp", "1"], []
     if extra == ["--mesh", "2x4"]:
         # --mesh is ported; it exits 2 only for want of CUDA devices
         if torch.cuda.device_count() >= 8:
@@ -394,3 +404,110 @@ def test_cli_unported_flags_exit_2(extra, capsys):
         pipeline.main(args + extra)
     assert exc.value.code == 2
     assert wanted in capsys.readouterr().err
+
+
+def _polling(base):
+    """A ``fill_into`` source over ``base`` that answers one poll timeout
+    (None) at its third call, then real gulps; after ``nreal`` real gulps
+    it reports itself stopped (None, ``_stopped``), as a capture does."""
+
+    class Polling(base):
+        def __init__(self, cfg, nreal, **kw):
+            super().__init__(cfg, mode="random", seed=51, **kw)
+            self.nreal = nreal
+            self.ncall = 0
+            self.nfilled = 0
+            self._stopped = False
+
+        def fill_into(self, dest):
+            self.ncall += 1
+            if self.ncall == 3 or self.nfilled == self.nreal:
+                self._stopped = self.nfilled == self.nreal
+                return None
+            self.nfilled += 1
+            return super().fill_into(dest)
+
+        def stream(self, ngulp, seq0=0):
+            return super().stream(ngulp, seq0)
+
+    return Polling
+
+
+@pytest.mark.parametrize("ngulp", ["exact", "until_stopped"])
+def test_poll_timeouts_are_skipped_like_jax(ngulp):
+    """A None from ``fill_into`` releases its reservation and counts no
+    gulp; a stopped source ends the ingest.  Both drivers dump the same
+    packets from the same real gulps."""
+    cfg = CFG.replace(corr_engine="xla", subsel_engine="xla",
+                      bf_engine="xla")
+    nreal = 2 * cfg.acc_len_slow // cfg.ntime_gulp
+    jsrc = _polling(jsource.DummySource)(cfg, nreal)
+    psrc = _polling(source.SyntheticSource)(port_cfg(cfg), nreal)
+    (jp, js, jgot), (pp, ps, pgot) = make_pipes(cfg, jsrc, psrc)
+    for pipe, store in ((jp, js), (pp, ps)):
+        load_gains(pipe, store, cfg, 52)
+    n = nreal if ngulp == "exact" else 0
+    jp.run(n, timeout_s=300)
+    pp.run(n, timeout_s=300)
+    assert psrc.nfilled == jsrc.nfilled == nreal
+    assert (pp.ndump_fast, pp.ndump_slow) == (jp.ndump_fast, jp.ndump_slow) \
+        == (nreal * cfg.ntime_gulp // cfg.acc_len, 2)
+    assert_same_packets(jgot, pgot)
+
+
+def _stalled(base):
+    """A source whose ``fill_into`` waits until ``stop()`` (a capture
+    with no traffic), then answers None as a stopped capture does."""
+
+    class Stalled(base):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.stopped = threading.Event()
+            self._stopped = False
+
+        def fill_into(self, dest):
+            self.stopped.wait(timeout=10.0)
+            return None
+
+        def stream(self, ngulp, seq0=0):
+            return super().stream(ngulp, seq0)
+
+        def stop(self):
+            self._stopped = True
+            self.stopped.set()
+
+    return Stalled
+
+
+@pytest.mark.parametrize("driver", ["jax", "port"])
+def test_stalled_run_stops_the_source(driver):
+    """``run(timeout_s=...)`` on a stalled stream shuts the pipeline down
+    and stops its source, so a capture's thread and socket end with it."""
+    if driver == "jax":
+        src = _stalled(jsource.DummySource)(CFG)
+        pipe = JPipe(CFG, src)
+    else:
+        src = _stalled(source.SyntheticSource)(PCFG)
+        pipe = XEnginePipeline(PCFG, src, device="cpu")
+    with pytest.raises(TimeoutError):
+        pipe.run(4, timeout_s=1.0)
+    assert src.stopped.is_set()
+
+
+def test_stage_error_stops_the_source():
+    class Broken(sink.CorrPartOutput):
+        def send_subsel(self, *a, **k):
+            raise OSError("sink down")
+
+    class Recording(source.SyntheticSource):
+        stopped = False
+
+        def stop(self):
+            self.stopped = True
+
+    src = Recording(PCFG)
+    pp = XEnginePipeline(PCFG, src, device="cpu",
+                         subsel_outputs=[Broken(PCFG, send=print)])
+    with pytest.raises(RuntimeError, match="stage failed"):
+        pp.run(40, timeout_s=120)
+    assert src.stopped

@@ -263,22 +263,33 @@ def test_gulp_launchers_refuse_bad_arguments(lib, name):
     assert fn(ptr(xc), 128, 16, 1, 8, 0, ptr(out), ptr(out), None) != 0
 
 
-# (nchan, ninput, nvis, nchan_sum): more pairs than a block's 256 threads,
-# one channel summed per output, all channels into one
-@pytest.mark.parametrize("nchan,ni,nvis,nchan_sum", [
-    (8, 20, 300, 4), (3, 7, 5, 1), (6, 33, 40, 6)])
-def test_subsel_gather_emulated_matches_plain(lib, nchan, ni, nvis,
-                                              nchan_sum):
-    """``cbd_subsel_gather`` against the plain gather: both orders of a
-    pair (the conjugated one flips the imaginary sign), and pairs out of
-    range or negative, which clamp to [0, ninput - 1] first."""
+def unaligned(shape, fill) -> np.ndarray:
+    """An int32 array whose data start 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    raw = np.empty(4 * n + 32, np.uint8)
+    skip = (4 - raw.ctypes.data) % 16
+    out = raw[skip:skip + 4 * n].view(np.int32).reshape(shape)
+    out[...] = fill
+    return out
+
+
+# (nchan, ninput, nvis, nchan_sum): every instantiation (1, 2, 4, 8) and
+# the generic one (3, 6; 6 takes two chunks of its channel loop); nvis not
+# a multiple of a thread's 4 outputs, so threads cross row ends; more
+# outputs than the stub's one wave (3 SMs x 1 block x 64 threads x 4), so
+# the grid strides; fewer baselines than a thread's outputs
+SUBSEL_CASES = [
+    (8, 20, 300, 4), (3, 7, 5, 1), (6, 33, 40, 6), (16, 24, 301, 2),
+    (16, 24, 98, 8), (9, 11, 203, 3), (12, 10, 3, 4), (2, 9, 1, 1)]
+
+
+def run_subsel(lib, nchan, ni, nvis, nchan_sum, make_out) -> None:
     rng = np.random.RandomState(nvis + ni)
     vis = [rng.randint(-2 ** 30, 2 ** 30, (nchan, ni, ni)).astype(np.int32)
            for _ in range(2)]
     pairs = rng.randint(0, ni, (nvis, 2)).astype(np.int32)
-    pairs[:3] = [[ni + 5, 2], [-3, ni - 1], [1, -40]]
-    out = [np.full((nchan // nchan_sum, nvis), SENTINEL, np.int32)
-           for _ in range(2)]
+    pairs[:3] = [[ni + 5, 2], [-3, ni - 1], [1, -40]][:nvis]
+    out = [make_out((nchan // nchan_sum, nvis)) for _ in range(2)]
     rc = lib.cbd_subsel_gather(ptr(vis[0]), ptr(vis[1]), nchan, ni,
                                ptr(pairs), nvis, nchan_sum, ptr(out[0]),
                                ptr(out[1]), None)
@@ -287,6 +298,44 @@ def test_subsel_gather_emulated_matches_plain(lib, nchan, ni, nvis,
                               torch.from_numpy(pairs), nchan_sum)
     for g, w in zip(out, want):
         np.testing.assert_array_equal(g, w.numpy())
+
+
+# (nchan, ninput, nvis, nchan_sum): every instantiation (1, 2, 4, 8) and
+# the generic one (3, 6; 6 takes two chunks of its channel loop); nvis not
+# a multiple of a thread's 4 outputs, so threads cross row ends; more
+# outputs than the stub's one wave (3 SMs x 1 block x 64 threads x 4), so
+# the grid strides; fewer baselines than a thread's outputs
+@pytest.mark.parametrize("nchan,ni,nvis,nchan_sum", SUBSEL_CASES)
+def test_subsel_gather_emulated_matches_plain(lib, nchan, ni, nvis,
+                                              nchan_sum):
+    """``cbd_subsel_gather`` against the plain gather: both orders of a
+    pair (the conjugated one flips the imaginary sign), and pairs out of
+    range or negative, which clamp to [0, ninput - 1] first; the outputs
+    are 16-byte aligned, so full groups of 4 leave as 16-byte stores."""
+
+    def make_out(shape):
+        out = np.full(shape, SENTINEL, np.int32)
+        assert out.ctypes.data % 16 == 0
+        return out
+
+    run_subsel(lib, nchan, ni, nvis, nchan_sum, make_out)
+
+
+def unaligned(shape) -> np.ndarray:
+    """An int32 array whose data start 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    raw = np.empty(4 * n + 32, np.uint8)
+    skip = (4 - raw.ctypes.data) % 16
+    out = raw[skip:skip + 4 * n].view(np.int32).reshape(shape)
+    out[...] = SENTINEL
+    return out
+
+
+@pytest.mark.parametrize("nchan,ni,nvis,nchan_sum", SUBSEL_CASES[3:6])
+def test_subsel_gather_emulated_unaligned_outputs(lib, nchan, ni, nvis,
+                                                  nchan_sum):
+    """Outputs that are not 16-byte aligned take 4-byte stores."""
+    run_subsel(lib, nchan, ni, nvis, nchan_sum, unaligned)
 
 
 def test_subsel_gather_refuses_bad_arguments(lib):

@@ -134,6 +134,27 @@ def test_corr_subsel_matches_plain(dev, nchan, ni, nchan_sum):
     assert torch.equal(got.imag, want.imag)
 
 
+@pytest.mark.parametrize("nchan_sum", [1, 2, 3, 6, 8])
+def test_corr_subsel_each_channel_group_at_production_shape(dev, nchan_sum):
+    """The gather's instantiations (1, 2, 8) and its generic body (3, 6)
+    at 704 inputs x 192 channels, 4705 pairs (not a multiple of a thread's
+    4 outputs) with a malformed pair, exact against the plain version."""
+    rng = np.random.RandomState(nchan_sum)
+    vis = Vis(*(torch.from_numpy(rng.randint(-2 ** 28, 2 ** 28,
+                                             (192, 704, 704))
+                                 .astype(np.int32)).to(dev)
+                for _ in range(2)))
+    pairs = np.concatenate([
+        cs.baselines_to_inputs(cs.production_baselines(4704, 352)),
+        [[400 * 2, 7]]]).astype(np.int32)
+    pairs = torch.from_numpy(pairs).to(dev)
+    want = cs.corr_subsel_ref(vis, pairs, nchan_sum)
+    got = cs.corr_subsel(vis, pairs, nchan_sum)
+    torch.cuda.synchronize()
+    assert torch.equal(got.real, want.real)
+    assert torch.equal(got.imag, want.imag)
+
+
 def test_beamform_products_follow_gains_changed_in_place(dev):
     """The bf16 split of the gains is made anew on every call: gains
     rewritten in place (as a gain-load command does) move the products at

@@ -1,7 +1,9 @@
 """The port, its CLI, the FX bench and ``chip_smoke.py`` import without
 JAX and without any module of the JAX package, an ``XEnginePipeline`` runs
-on the CPU (unsharded and on a 2x2 mesh) in such a process, and
-the CLI and the bench refuse to run on a host without a card."""
+on the CPU (unsharded and on a 2x2 mesh) in such a process, the port's
+native loader builds and loads its own library and leaves the JAX
+package's ``native/libcbd_native.so`` as it was, and the CLI and the bench
+refuse to run on a host without a card."""
 
 import os
 import subprocess
@@ -21,6 +23,7 @@ import caltech_bifrost_dsp_tpu_torch.config
 import caltech_bifrost_dsp_tpu_torch.control.command
 import caltech_bifrost_dsp_tpu_torch.control.monitor
 import caltech_bifrost_dsp_tpu_torch.control.store
+import caltech_bifrost_dsp_tpu_torch.io.native
 import caltech_bifrost_dsp_tpu_torch.io.packets
 import caltech_bifrost_dsp_tpu_torch.io.sink
 import caltech_bifrost_dsp_tpu_torch.io.source
@@ -82,6 +85,30 @@ def test_port_imports_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
+
+
+LOAD_NATIVE = """
+import os, sys
+from pathlib import Path
+jax_lib = Path("native/libcbd_native.so")
+def state():
+    return jax_lib.stat().st_mtime_ns if jax_lib.exists() else None
+before = state()
+from caltech_bifrost_dsp_tpu_torch.io import native
+lib = native.load()
+assert Path(lib._name).parent == native.BUILD_DIR, lib._name
+assert state() == before, (before, state())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m.startswith("caltech_bifrost_dsp_tpu."))
+assert not bad, bad
+print("own library")
+"""
+
+
+def test_native_loader_leaves_the_jax_library_alone():
+    proc = _run(["-c", LOAD_NATIVE])
+    assert proc.returncode == 0, proc.stderr
+    assert "own library" in proc.stdout
 
 
 def test_cli_device_cuda_fails_loudly_without_a_card():

@@ -5,6 +5,8 @@ The golden CLI gate: JAX ``make_golden`` writes the files, the port's CLI
 
 import dataclasses
 
+import socket
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from caltech_bifrost_dsp_tpu.scripts.tpu_parity import (host_beams,
                                                         host_power)
 from caltech_bifrost_dsp_tpu.verification import golden as jgolden
 from caltech_bifrost_dsp_tpu_torch import config as TC
+from caltech_bifrost_dsp_tpu_torch.io import native
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
@@ -66,8 +69,25 @@ def test_cli_golden_gate_detects_corruption(tmp_path):
 
 
 def test_cli_requires_fakesource():
+    """Without ``--fakesource`` the CLI reads UDP capture and never falls
+    back to a synthetic stream: its source is ``native.CaptureSource`` on
+    the given address (a run: tests/test_torch_over_the_wire.py), and
+    float32 ADC, which only the synthetic source makes, is refused."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = pipeline.build_parser().parse_args(
+        ["--ip", "127.0.0.1", "--port", str(port), "--device", "cpu",
+         "--nstand", "16", "--nchan", "16", "--nbeam", "4", "--ntime_gulp",
+         "48", "--acc_len", "240", "--acc_len_slow", "480"])
+    pipe, _ = pipeline.build_pipeline(args)
+    try:
+        assert type(pipe.source) is native.CaptureSource
+    finally:
+        pipe.source.close()
     with pytest.raises(SystemExit) as exc:
-        pipeline.main(["--device", "cpu", "--ngulp", "1"])
+        pipeline.main(["--device", "cpu", "--ngulp", "1", "--fx",
+                       "--port", str(port)])
     assert exc.value.code != 0
 
 
