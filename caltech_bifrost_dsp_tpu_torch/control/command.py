@@ -29,6 +29,7 @@ import threading
 import time
 
 from ..utils.proclog import ProcLog
+from .store import Event, WatchResponse
 
 COMMAND_OK = 0
 COMMAND_NOT_RECOGNIZED = -1
@@ -114,6 +115,14 @@ class CommandBlock:
         self._command_conditions[name] = condition
 
     # -- command ingestion ----------------------------------------------------
+
+    def process_command_strings(self, cmds) -> None:
+        """Take command JSON strings as if they had arrived over the store
+        (the reference's path that bypasses etcd, block_base.py:194-214);
+        used with ``CorrControlClient(simulated=True)``."""
+        if not isinstance(cmds, list):
+            cmds = [cmds]
+        self._watch_callback(WatchResponse([Event("", c) for c in cmds]))
 
     def _watch_callback(self, watchresponse) -> None:
         with self._control_lock:

@@ -5,7 +5,8 @@ The reference runs a daemon that polls the bifrost proclogs, derives rates
 from byte-counter deltas and publishes JSON under ``/mon/corr/...``
 (reference: pipeline-control/scripts/bifrost_etcd_bridge.py:14,101-161).
 Here the bridge reads the in-process registry of :mod:`..utils.proclog`
-and publishes to any store with the MemoryStore interface.
+and publishes to any store with the MemoryStore interface;
+:func:`render_text` is the dashboard of the reference's etcd_monitor.py.
 """
 
 from __future__ import annotations
@@ -90,3 +91,26 @@ class MonitorBridge:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5)
+
+
+def render_text(store, keyroot: str = "/mon/corr") -> str:
+    """Plain-text dashboard of the published monitor keys, one line a
+    block (the reference's pipeline-control/scripts/etcd_monitor.py)."""
+    rows = []
+    for key, raw in sorted(store.get_prefix(keyroot).items()):
+        try:
+            d = json.loads(raw)
+        except ValueError:
+            continue
+        if not isinstance(d, dict):
+            continue  # sub-keys, such as the cached baselines list
+        perf = d.get("perf", {})
+        stats = d.get("stats", {})
+        rows.append("%-24s state=%-10s gbps=%-8.2f acq=%-7.3f res=%-7.3f "
+                    "proc=%-7.3f" % (
+                        d.get("block", key), stats.get("state", "-"),
+                        perf.get("gbps", d.get("gbps", 0.0)),
+                        perf.get("acquire_time", 0.0),
+                        perf.get("reserve_time", 0.0),
+                        perf.get("process_time", 0.0)))
+    return "\n".join(rows)

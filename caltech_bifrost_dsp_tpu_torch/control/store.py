@@ -2,10 +2,18 @@
 ``caltech_bifrost_dsp_tpu/control/store.py``).
 
 The reference's control plane is etcd3: blocks watch command keys and put
-status/response keys (reference: blocks/block_base.py:151-153).  The port
-has the in-process :class:`MemoryStore` (the analog of
-``EtcdCorrControl(simulated=True)``); the etcd wire client and the bundled
-TCP store are not ported, and :func:`connect` refuses a host.
+status/response keys (reference: blocks/block_base.py:151-153).  Three
+stores share one interface (``put``/``get``/``get_prefix``/``delete``/
+``add_watch_prefix_callback``/``cancel_watch``), chosen by :func:`connect`:
+
+- :class:`MemoryStore`, in process (the analog of
+  ``EtcdCorrControl(simulated=True)``, etcd_control.py:276-277);
+- :class:`.netstore.NetStore`, the bundled TCP store (``kv://HOST:PORT``),
+  for several processes on one host without etcd;
+- :class:`.etcd3_wire.Etcd3Client`, the etcd v3 gRPC wire protocol spoken
+  over ``grpcio``, against an etcd cluster or the bundled
+  :class:`.etcd3_wire.Etcd3Server`.  ``grpc`` is imported only when such a
+  client is made.
 """
 
 from __future__ import annotations
@@ -67,11 +75,27 @@ class MemoryStore:
             self._watches.pop(watch_id, None)
 
 
-def connect(host: str | None = None, port: int = 2379) -> MemoryStore:
-    """Store factory: ``None`` gives an in-process MemoryStore.  etcd and
-    the ``kv://`` TCP store are not ported yet."""
-    if host:
-        raise NotImplementedError(
-            f"control store {host!r}: etcd and kv:// stores are not ported "
-            "yet; only the in-process store (no host) is")
-    return MemoryStore()
+def Etcd3Store(host: str = "localhost", port: int = 2379):
+    """etcd3 client with the MemoryStore interface (the etcd v3 gRPC wire
+    protocol over ``grpcio``, :class:`.etcd3_wire.Etcd3Client`)."""
+    from .etcd3_wire import Etcd3Client
+
+    return Etcd3Client(host, port)
+
+
+def connect(host: str | None = None, port: int = 2379):
+    """Store factory.
+
+    - ``None`` (or "") -> an in-process :class:`MemoryStore`;
+    - ``"kv://HOST:PORT"`` -> the bundled TCP store (:mod:`.netstore`);
+    - anything else -> an etcd3 wire client at ``host``:``port``; without
+      ``grpc`` this raises ``ImportError``.
+    """
+    if not host:
+        return MemoryStore()
+    if host.startswith("kv://"):
+        from .netstore import NetStore
+
+        h, _, p = host[5:].partition(":")
+        return NetStore(h or "127.0.0.1", int(p or 4440))
+    return Etcd3Store(host, port)

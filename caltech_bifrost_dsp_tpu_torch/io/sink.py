@@ -15,6 +15,9 @@ correlation and beam packet emitters.
 - :class:`PBeamOutput`: per-beam PBEAM streams (beamform_output_block.py).
 - :class:`IBeamOutput`: IBEAM voltage packets, burst-throttled to 0.6 Gb/s
   (beamform_vlbi_output_block.py:202-275).
+- :class:`TriggeredDump`: the transient voltage recorder's writer, the
+  history ring to self-describing files (triggered_dump_block.py); the
+  files equal the JAX writer's byte for byte.
 
 Writers take a ``send`` callable (a :class:`UdpSender` or a collector), so
 tests capture packets without a network; ``send=None`` emits nothing.
@@ -22,6 +25,7 @@ tests capture packets without a network; ``send=None`` emits nothing.
 
 from __future__ import annotations
 
+import json
 import os
 import socket
 import time
@@ -405,3 +409,163 @@ class IBeamOutput:
             self.throttle.account(8 * len(pkt))
             npkt += 1
         return npkt
+
+
+class TriggeredDump:
+    """Dump the deep history ring to self-describing files.
+
+    A file is an 8-byte little-endian total-size prefix, the JSON header
+    padded into a 1 MB block, then the raw frames (triggered_dump_block.py:
+    131-151, 176-179, 264-268); commands trigger/abort/stop with
+    ntime_per_file / nfile / dump_path (164-169); a dump starts at the
+    earliest resident frame (218).
+
+    ``direct`` writes with O_DIRECT|O_SYNC, the reference's sustained-dump
+    mode (triggered_dump_block.py:260-263); where the filesystem refuses
+    O_DIRECT (tmpfs, for one) the file is written buffered, as the
+    reference's writer does.  ``last_direct`` says which wrote the last
+    file.
+    """
+
+    HEADER_BLOCK = 1024 * 1024
+
+    def __init__(self, history_ring, dump_path: str = ".",
+                 file_prefix: str = "lwa-dump", direct: bool = False):
+        self.ring = history_ring
+        self.dump_path = dump_path
+        self.file_prefix = file_prefix
+        self.direct = direct
+        self.abort_requested = False
+        self.last_direct: bool | None = None
+
+    def trigger(self, ntime_per_file: int, nfile: int = 1,
+                dump_path: str | None = None) -> list[str]:
+        """Write up to ``nfile`` files of ``ntime_per_file`` samples each
+        from the earliest resident frame on; returns their paths."""
+        # an abort issued while no dump ran must not cancel this trigger
+        self.abort_requested = False
+        path = dump_path or self.dump_path
+        files = []
+        hdr0 = self.ring.header
+        # samples per ring frame: a packed frame holds [ntime, nchan,
+        # ninput] bytes, an ADC frame [nsamp, ninput] samples of nbit
+        if hdr0.get("adc"):
+            sample_nbyte = (hdr0.get("nbit", 32) // 8
+                            * hdr0.get("nstand", 1) * hdr0.get("npol", 1))
+        else:
+            sample_nbyte = (hdr0.get("nchan", 1) * hdr0.get("nstand", 1)
+                            * hdr0.get("npol", 1)) or 1
+        spf = max(1, self.ring.frame_nbyte // sample_nbyte)
+        # sequence step per frame: one ntime_gulp in both modes (ADC
+        # sequences count output spectra, io/native.py AdcCaptureSource),
+        # so the 2*nchan ADC samples of a spectrum stay out of seq0
+        seq_pf = (max(1, spf // (2 * hdr0["nchan"]))
+                  if hdr0.get("adc") and hdr0.get("nchan")
+                  else spf)
+        frames_per_file = max(1, -(-ntime_per_file // spf))
+        lo = self.ring.earliest()
+        for i in range(nfile):
+            if self.abort_requested:
+                break
+            # capture keeps pushing during the dump; where it lapped the
+            # cursor, skip forward to the earliest resident frame (the
+            # reference reopens at the earliest, triggered_dump_block.py:218)
+            while True:
+                lo = max(lo, self.ring.earliest())
+                n = min(frames_per_file, self.ring.count - lo)
+                if n <= 0:
+                    break
+                try:
+                    data = self.ring.snapshot(lo, n)
+                    break
+                except IndexError:
+                    continue  # lapped between earliest() and snapshot()
+            if n <= 0:
+                break
+            hdr = dict(hdr0)
+            hdr.update({"ntime": n * spf,
+                        "seq0": self.ring.frame0_seq + lo * seq_pf,
+                        "dump_index": i})
+            fname = os.path.join(
+                path, "%s_%d_%d.tbf" % (self.file_prefix,
+                                        hdr.get("seq0", 0), i))
+            self._write_file(fname, hdr, data)
+            files.append(fname)
+            lo += n
+        self.abort_requested = False
+        return files
+
+    def _write_file(self, fname: str, header: dict, data: np.ndarray
+                    ) -> None:
+        hdr_json = json.dumps(header).encode()
+        if len(hdr_json) > self.HEADER_BLOCK - 8:
+            raise ValueError("header too large")
+        total = self.HEADER_BLOCK + data.nbytes
+        self.last_direct = bool(self.direct and self._write_file_direct(
+            fname, hdr_json, data, total))
+        if self.last_direct:
+            return
+        with open(fname, "wb") as fh:
+            fh.write(total.to_bytes(8, "little"))
+            fh.write(hdr_json)
+            fh.write(b"\x00" * (self.HEADER_BLOCK - 8 - len(hdr_json)))
+            fh.write(data.tobytes())
+
+    def _write_file_direct(self, fname: str, hdr_json: bytes,
+                           data: np.ndarray, total: int) -> bool:
+        """O_DIRECT|O_SYNC writes of whole pages from a page-aligned mmap
+        bounce buffer; the tail under a page is appended buffered.  Returns
+        False where the filesystem refuses O_DIRECT."""
+        import mmap
+
+        if not hasattr(os, "O_DIRECT"):
+            return False
+        try:
+            fd = os.open(fname, os.O_WRONLY | os.O_CREAT | os.O_TRUNC
+                         | os.O_DIRECT | os.O_SYNC, 0o644)
+        except OSError:
+            return False
+        try:
+            raw = memoryview(data).cast("B")
+            chunk_n = 32 << 20
+            buf = mmap.mmap(-1, max(self.HEADER_BLOCK, chunk_n))
+            # slicing an mmap gives an unaligned bytes copy, which O_DIRECT
+            # refuses: write memoryview slices of the aligned mapping
+            mv = memoryview(buf)
+            buf[:8] = total.to_bytes(8, "little")
+            buf[8:8 + len(hdr_json)] = hdr_json
+            buf[8 + len(hdr_json):self.HEADER_BLOCK] = \
+                b"\x00" * (self.HEADER_BLOCK - 8 - len(hdr_json))
+
+            def write_all(view):
+                # a short write (a signal, ENOSPC) is retried from where it
+                # stopped; an offset that breaks O_DIRECT alignment raises
+                # EINVAL and the caller writes the file buffered
+                done = 0
+                while done < len(view):
+                    n = os.write(fd, view[done:])
+                    if n <= 0:
+                        raise OSError("short write to %s" % fname)
+                    done += n
+
+            write_all(mv[:self.HEADER_BLOCK])
+            aligned = len(raw) // 4096 * 4096
+            off = 0
+            while off < aligned:
+                n = min(chunk_n, aligned - off)
+                buf[:n] = raw[off:off + n]
+                write_all(mv[:n])
+                off += n
+            os.close(fd)
+            fd = -1
+            if aligned < len(raw):
+                with open(fname, "ab") as fh:
+                    fh.write(raw[aligned:])
+            return True
+        except OSError:
+            if fd >= 0:
+                os.close(fd)
+            return False
+
+    def abort(self) -> None:
+        self.abort_requested = True

@@ -1,8 +1,10 @@
 """Sources (port of ``caltech_bifrost_dsp_tpu/io/source.py``): the synthetic
 ``SyntheticSource`` (the JAX ``DummySource``) and ``ADCSource`` with the
 interface the streaming driver consumes, ``header()``, ``stream()`` and the
-zero-copy ``fill_into()``, and :class:`UdpSnap2Source`, the pure-Python
-snap2 reassembler (the native engine is :mod:`.native`).
+zero-copy ``fill_into()``, :class:`TriggerFileSource`, the replay of a
+transient recorder file (:class:`.sink.TriggeredDump`), and
+:class:`UdpSnap2Source`, the pure-Python snap2 reassembler (the native
+engine is :mod:`.native`).
 
 Modes follow the reference's DummySource (dummy_source_block.py):
 ``ramp`` (byte counter), ``random`` (``randint(0, 255)`` from a seeded
@@ -15,6 +17,7 @@ sources' bytes.
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -211,6 +214,51 @@ class ADCSource:
         self._fill_i += 1
         out[...] = self.gulp(i)
         return i * self.cfg.ntime_gulp
+
+
+class TriggerFileSource:
+    """Replay a :class:`.sink.TriggeredDump` file as a sequence (reference:
+    blocks/trigger_source_block.py:73 TriggerReplay).
+
+    The file (triggered_dump_block.py:131-151): an 8-byte little-endian
+    total-size prefix, the JSON header padded to 1 MB, then the raw ring
+    frames: packed uint8 [ntime, nchan, ninput], or with ``adc`` in the
+    header ADC samples [ntime, ninput] of ``nbit`` bits.
+    """
+
+    HEADER_BLOCK = 1024 * 1024
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as fh:
+            size = int.from_bytes(fh.read(8), "little")
+            raw = fh.read(self.HEADER_BLOCK - 8)
+            self.header = json.loads(raw.split(b"\x00", 1)[0].decode())
+            self.payload_nbyte = size - self.HEADER_BLOCK
+
+    def read(self) -> tuple[dict, np.ndarray]:
+        """(header, samples): uint8 [ntime, nchan, ninput], or in the ADC
+        layout int8/float32 [ntime, ninput]."""
+        with open(self.path, "rb") as fh:
+            fh.seek(self.HEADER_BLOCK)
+            raw = fh.read(self.payload_nbyte)
+        h = self.header
+        if h.get("adc"):
+            adc_dt = np.int8 if h.get("nbit", 32) == 8 else np.float32
+            data = np.frombuffer(raw, adc_dt)
+            return h, data.reshape(h["ntime"], h["nstand"] * h["npol"])
+        data = np.frombuffer(raw, np.uint8)
+        shape = (h["ntime"], h["nchan"], h["nstand"] * h["npol"])
+        return h, data.reshape(shape)
+
+    def gulps(self, ntime_gulp: int):
+        """Yield ``(t, gulp)`` of ``ntime_gulp`` rows each from the header's
+        ``seq0`` on; a short tail is left out."""
+        h, data = self.read()
+        seq0 = h.get("seq0", 0)
+        for g in range(data.shape[0] // ntime_gulp):
+            yield (seq0 + g * ntime_gulp,
+                   data[g * ntime_gulp:(g + 1) * ntime_gulp])
 
 
 class UdpSnap2Source:

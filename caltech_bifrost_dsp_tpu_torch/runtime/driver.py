@@ -36,13 +36,20 @@ upload stays one pinned buffer and one H2D to the mesh's first device;
 shards on that device are views of the uploaded block, shards elsewhere
 are copied device to device.
 
-Not ported yet: the stub-device timing mode (``stub_device_ms=``) and the
-trigger-history ring with its dump (``history_nbyte``, ``dump_direct``);
-each raises.
+With ``history_nbyte`` the ingest thread also copies every gulp into a
+:class:`..runtime.ring.HistoryRing` of that many bytes (raw ADC frames in
+FX mode), the transient voltage recorder: a ``trigger`` command to the
+``TriggeredDump`` block writes the ring to files from a thread of its own
+(:class:`..io.sink.TriggeredDump`, O_DIRECT with ``dump_direct``), which
+:class:`..io.source.TriggerFileSource` replays.
+
+Not ported yet: the stub-device timing mode (``stub_device_ms=``), which
+raises.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -52,7 +59,7 @@ import torch
 
 from ..config import XEngineConfig
 from ..control.command import CommandBlock
-from ..io.sink import Throttle, UdpSender
+from ..io.sink import Throttle, TriggeredDump, UdpSender
 from ..models import xengine
 from ..ops import corr_subsel as cs
 from ..ops.beamform import BeamGains
@@ -62,7 +69,7 @@ from ..parallel import mesh as pmesh
 from ..utils.proclog import PerfTimer
 from ..verification import golden
 from .arming import Action, IntegrationController
-from .ring import Ring
+from .ring import HistoryRing, Ring
 from .runner import fx_scale
 
 
@@ -318,6 +325,51 @@ class BeamOutputCommandBlock(CommandBlock):
         self.sink.senders = senders
 
 
+class TriggeredDumpCommandBlock(CommandBlock):
+    """Trigger/abort/stop endpoint of the transient voltage recorder
+    (command keys per reference: triggered_dump_block.py:164-169).  A
+    trigger writes the files from a daemon thread; the block's ``state``
+    stat is "dumping" meanwhile and "idle" after, with ``last_files`` and
+    ``last_direct``."""
+
+    def __init__(self, dumper, store=None):
+        super().__init__("TriggeredDump", store=store,
+                         apply_immediately=True)
+        self.dumper = dumper
+        self.define_command_key(
+            "command", type=str, initial_val="",
+            condition=lambda x: x in ("", "trigger", "abort", "stop"))
+        self.define_command_key("ntime_per_file", type=int,
+                                initial_val=1024)
+        self.define_command_key("nfile", type=int, initial_val=1)
+        self.define_command_key("dump_path", type=str, initial_val=".")
+        self._on_command_applied = self._dispatch
+        self.last_files: list = []
+
+    def _dispatch(self, pending: dict):
+        cmd = pending.get("command")
+        if cmd == "trigger" and self.dumper is not None:
+            def _run():
+                self.update_stats({"state": "dumping"})
+                try:
+                    self.last_files = self.dumper.trigger(
+                        self.command_vals["ntime_per_file"],
+                        self.command_vals["nfile"],
+                        self.command_vals["dump_path"])
+                finally:
+                    # a dump that dies mid-write must not leave "dumping";
+                    # last_direct: whether O_DIRECT wrote the last file
+                    self.update_stats({"state": "idle",
+                                       "last_files": self.last_files,
+                                       "last_direct":
+                                       self.dumper.last_direct})
+
+            threading.Thread(target=_run, daemon=True,
+                             name="triggered-dump").start()
+        elif cmd in ("abort", "stop") and self.dumper is not None:
+            self.dumper.abort()
+
+
 def source_fill_compatible(src_cls: type) -> bool:
     """Whether the ingest thread may have the source fill staging
     reservations in place (``fill_into``): only when the class defining
@@ -344,6 +396,10 @@ class XEnginePipeline:
     with ``mesh=`` it is the mesh's first device, and a ``device`` of
     another type than the mesh's raises.  After :meth:`run`, ``dump_times`` holds the host clock at which each
     fast dump's products left the output thread.
+
+    ``history_nbyte`` > 0 keeps that many bytes of raw input in a
+    :class:`HistoryRing` (``history``) behind a ``TriggeredDump`` command
+    block (``dump_cmd``, writer ``dumper``; ``dump_direct`` for O_DIRECT).
     """
 
     def __init__(self, cfg: XEngineConfig, source, store=None,
@@ -356,9 +412,6 @@ class XEnginePipeline:
                  stub_device_ms: float | None = None, device="cuda"):
         if stub_device_ms is not None:
             raise NotImplementedError("stub_device_ms= is not ported yet")
-        if history_nbyte or dump_direct:
-            raise NotImplementedError("the trigger-history ring and "
-                                      "TriggeredDump are not ported yet")
         if fx_mode and selftest:
             raise ValueError("selftest compares packed post-F input; "
                              "not applicable in FX mode")
@@ -421,6 +474,15 @@ class XEnginePipeline:
         nwin = max(3, -(-(1 << 22) // (win_gulps * raw_gulp)))
         self.staging = Ring("staging", nbyte_budget=nwin * win_gulps
                             * raw_gulp, backing=True)
+        self.history = None
+        self.dumper = None
+        self.dump_cmd = None
+        if history_nbyte:
+            # a frame is one gulp as ingested: packed bytes, or raw ADC
+            self.history = HistoryRing(history_nbyte, frame_nbyte=raw_gulp)
+            self.dumper = TriggeredDump(self.history, direct=dump_direct)
+            self.dump_cmd = TriggeredDumpCommandBlock(self.dumper,
+                                                      store=store)
         self.output_cmds = []
         for name, sinks in (("CorrOutputFull", self.corr_outputs),
                             ("CorrOutputPart", self.subsel_outputs),
@@ -492,10 +554,21 @@ class XEnginePipeline:
                     time_tag=time_tag,
                     header=self.source.header(seq0=t,
                                               sync_time=self.sync_time))
+                if self.history is not None:
+                    # frame `count` maps to t; sequences advance ntime_gulp
+                    # a gulp in both modes (ADC sequences count output
+                    # spectra), so that is the per-frame step
+                    self.history.set_header(
+                        seq.header,
+                        t - self.history.count * self.cfg.ntime_gulp)
             if owned:
                 self.staging.commit_span(seq, gulp)
             else:
                 self.staging.write_span(seq, gulp)
+            if self.history is not None:
+                # a committed reservation is reused only after this
+                # thread's next reserve_span, so the gulp is still whole
+                self.history.push(gulp)
             expected = t + self.cfg.ntime_gulp
         if seq is not None:
             self.staging.end_sequence(seq)
@@ -973,3 +1046,15 @@ class XEnginePipeline:
         if hasattr(self.source, "stop"):
             self.source.stop()
         self.staging.shutdown()
+
+
+def build_pipeline_from_json(cfg_json: str, **kw) -> XEnginePipeline:
+    """A pipeline from a JSON blob ``{"config": {...XEngineConfig fields},
+    "source": {...SyntheticSource arguments}}``; ``kw`` goes to
+    :class:`XEnginePipeline`."""
+    from ..io.source import SyntheticSource
+
+    d = json.loads(cfg_json)
+    cfg = XEngineConfig(**d.get("config", {}))
+    src = SyntheticSource(cfg, **d.get("source", {}))
+    return XEnginePipeline(cfg, src, **kw)

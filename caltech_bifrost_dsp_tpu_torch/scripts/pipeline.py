@@ -3,12 +3,13 @@
 The analog of ``caltech_bifrost_dsp_tpu/scripts/pipeline.py`` (the
 reference's ``lwa352-pipeline.py`` operator entry point): assembles one
 :class:`..runtime.driver.XEnginePipeline` (source -> fused step on the
-card -> packet sinks) from the same flags, wires the in-process control
-store and the monitor bridge, installs signal handlers and runs.  The
-source is the native UDP capture (``io/native.py::CaptureSource`` on
-``--ip``/``--port``, AF_XDP with ``--xdp IFNAME``; with ``--fx``,
-``AdcCaptureSource`` of int8 ADC frames), or with ``--fakesource`` the
-synthetic stream.
+card -> packet sinks) from the same flags, wires the control store
+(``--etcdhost``: none for the in-process store, ``kv://HOST:PORT`` for the
+bundled TCP store, else an etcd host) and the monitor bridge, installs
+signal handlers and runs.  The source is the native UDP capture
+(``io/native.py::CaptureSource`` on ``--ip``/``--port``, AF_XDP with
+``--xdp IFNAME``; with ``--fx``, ``AdcCaptureSource`` of int8 ADC frames),
+or with ``--fakesource`` the synthetic stream.
 
 ``--testdatacorr`` gates every slow dump by exact equality (exit 1 on a
 mismatch), ``--testcorr`` compares every fast dump with a numpy
@@ -19,8 +20,9 @@ runs the plain versions of the kernels.  ``--mesh TIMExCHAN`` runs the
 sharded programs of ``parallel/mesh.py``: on the host's CUDA devices, one
 per shard (fewer devices than shards: exit 2 with the count, nothing is
 placed silently), or with ``--device cpu`` with every shard on the CPU.
-Not ported yet, and refused with exit code 2: ``--etcdhost``,
-``--bufgbytes`` > 0 and ``--dump-direct``.
+``--bufgbytes`` keeps that many GB of raw input in the transient
+recorder's history ring, dumped to files by a ``trigger`` command to the
+``TriggeredDump`` block (``--dump-direct``: O_DIRECT writes).
 
 Examples::
 
@@ -44,6 +46,11 @@ Examples::
       --fx --fx-tone-chan 9 --nstand 8 --nchan 32 --ntime_gulp 48 \\
       --acc_len 96 --acc_len_slow 192 --nbeam 4 --ngulp 8 --device cpu \\
       --save-slow slow.npz
+
+  # commanded over the bundled TCP store (xeng_manager --serve-kv 4440),
+  # with a 0.7 GB trigger history written with O_DIRECT
+  python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline --fakesource \\
+      --etcdhost kv://127.0.0.1:4440 --bufgbytes 0.7 --dump-direct
 
   # the sharded programs on a 2x4 mesh whose shards share the CPU
   python -m caltech_bifrost_dsp_tpu_torch.scripts.pipeline --fakesource \\
@@ -134,10 +141,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="emit the production LWA-SV COR (Mark5C) wire "
                         "format on the full/partial visibility outputs")
     p.add_argument("--dump-direct", action="store_true",
-                   help="not ported yet")
+                   help="write triggered dumps with O_DIRECT|O_SYNC "
+                        "(buffered where the filesystem refuses it)")
     p.add_argument("--bufgbytes", type=float, default=0.0,
-                   help="deep trigger-history buffer in GB (not ported "
-                        "yet: only 0)")
+                   help="transient recorder: GB of raw input kept in the "
+                        "trigger-history ring (0 = none)")
     p.add_argument("--ngulp", type=int, default=0,
                    help="stop after N gulps (0 = run forever)")
     p.add_argument("--testcorr", action="store_true",
@@ -201,7 +209,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--xdp-queue", type=int, default=0,
                    help="NIC queue id for --xdp")
     p.add_argument("--etcdhost", type=str, default=None,
-                   help="not ported yet (the in-process store is used)")
+                   help="control store: kv://HOST:PORT for the bundled TCP "
+                        "store, else an etcd host (port 2379); none = in "
+                        "process")
     p.add_argument("-l", "--logfile", type=str, default=None)
     p.add_argument("-v", "--verbose", action="count", default=0)
     p.add_argument("-q", "--quiet", action="count", default=0)
@@ -233,13 +243,7 @@ class SlowDumpKeeper:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit 2 on every flag whose machinery is not ported yet."""
-    unported = [("--etcdhost", args.etcdhost),
-                ("--bufgbytes > 0", args.bufgbytes > 0),
-                ("--dump-direct", args.dump_direct)]
-    for flag, given in unported:
-        if given:
-            parser.error(f"{flag} is not ported yet")
+    """Exit 2 on a combination of flags that cannot run."""
     if args.fx and (args.testdatain or args.testdatacorr):
         parser.error("--fx takes raw ADC samples; the golden test vectors "
                      "are packed post-F input")
@@ -277,7 +281,7 @@ def build_pipeline(args, mesh=None
         pfb_fft_impl=args.pfb_impl, pfb_precision=args.pfb_precision,
         adc_dtype=args.adc_dtype, **engines)
     CommandBlock.set_id(args.pipelineid)
-    store = connect(None)
+    store = connect(args.etcdhost)
     if args.fx and not args.fakesource:
         # int8 digitizer frames over the snap2 wire format
         if args.adc_dtype != "int8":
@@ -344,7 +348,8 @@ def build_pipeline(args, mesh=None
         sync_time=int(time.time()), selftest=args.testcorr,
         fx_mode=args.fx, quant_scale=args.quant_scale,
         eq_gains=load_eq_gains(args.eq_gains, cfg.nchan), mesh=mesh,
-        device=args.device)
+        history_nbyte=int(args.bufgbytes * 1e9),
+        dump_direct=args.dump_direct, device=args.device)
     pipe.monitor_bridge = MonitorBridge(store, pipeline_id=args.pipelineid)
     return pipe, keeper
 

@@ -10,8 +10,8 @@ also at a ragged shape, and the two that unpack their own tiles,
 ``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
 after the compiler's report of their registers and spills; the gather
 also timed alone, as a CUDA graph of bare launches, beside its wrapper),
-then drives six paths of the port, each with the kernel launch counts set
-to 0 just before it and read just after:
+then drives seven paths of the port, each with the kernel launch counts
+set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
   0xdeadbeef), three fast windows at 192 channels and one at 184;
@@ -52,10 +52,30 @@ to 0 just before it and read just after:
   Python-encoder run; last, one int8 FX window over ``AdcCaptureSource``,
   its packets those of the same samples fed in process.
 
-A last run drives the two correlator schedules that no engine name
+A run then drives the two correlator schedules that no engine name
 selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
 ``corr_rows``, over the golden stream through their wrappers and holds
 their slow sums to the plain slow dump.
+
+The seventh path, control and record, comes last: the driver over the
+golden windows without and with a 10-frame history ring (649 MB) on a
+``kv://`` store served in process, a trigger through the port's
+``PipelineControl`` while the ring fills and one after the run; every file
+byte for byte the golden gulps at its ``seq0``, the two windows of the
+second replayed through :class:`XEngineRunner` (fast dump, subselection
+and VLBI exact against the plain products) and written again with O_DIRECT
+(bytes equal); one int8 FX window with a 5-frame ADC ring, its dump equal
+to the ADC fed in and its replay giving the live run's packed bytes and
+fast dump exactly; then ``xeng_manager --serve-kv`` as a subprocess
+starting the port's CLI on golden vectors at full width with ``--etcdhost
+kv://``, ``--bufgbytes 0.7`` and ``--dump-direct``, armed by
+``CorrelatorControl.arm_and_wait``, its dump checked, stopped with exit
+code 0 and every slow dump equal to the golden file; last, one command
+over the etcd3 wire where ``grpc`` is installed (a line says so where it
+is not).  It prints the ms of a ring push, the driver's rate with and
+without the ring, the longest push gap during a dump, the dump MB/s
+buffered and direct (and whether the filesystem took O_DIRECT) and the
+``kv://`` round trips.
 
 Beside the four tensor-core kernels it times a library contraction as a
 yardstick, on earlier lines and labelled "contraction only":
@@ -79,31 +99,42 @@ from __future__ import annotations
 
 import ctypes
 import faulthandler
+import filecmp
 import hashlib
 import json
 import math
 import multiprocessing
+import os
 import re
 import shutil
+import signal
 import socket
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from multiprocessing import shared_memory
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from caltech_bifrost_dsp_tpu_torch.config import LWA352, TPU_ENGINES
+from caltech_bifrost_dsp_tpu_torch.control.client import (CorrControlClient,
+                                                          CorrelatorControl,
+                                                          PipelineControl)
 from caltech_bifrost_dsp_tpu_torch.control.command import CommandBlock
-from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
+from caltech_bifrost_dsp_tpu_torch.control.etcd3_wire import Etcd3Server
+from caltech_bifrost_dsp_tpu_torch.control.netstore import StoreServer
+from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore, connect
 from caltech_bifrost_dsp_tpu_torch.io import native
 from caltech_bifrost_dsp_tpu_torch.io import packets as pk
 from caltech_bifrost_dsp_tpu_torch.io import sink
 from caltech_bifrost_dsp_tpu_torch.io.source import (ADCSource,
-                                                     SyntheticSource)
+                                                     SyntheticSource,
+                                                     TriggerFileSource)
 from caltech_bifrost_dsp_tpu_torch.models.xengine import (dense_vis, fx_step,
                                                           init_state,
                                                           xengine_step)
@@ -1654,9 +1685,11 @@ class AdcWindowSource(ADCSource):
             yield seq0 + i * self.cfg.ntime_gulp, self.adc[i * n:(i + 1) * n]
 
 
-def fx_driver(cfg, src, qs: float, gains_np) -> tuple[XEnginePipeline, dict]:
+def fx_driver(cfg, src, qs: float, gains_np, **kw
+              ) -> tuple[XEnginePipeline, dict]:
     """An FX ``XEnginePipeline`` on the card with every sink collecting in
-    process and the integer gains commanded; returns it and its packets."""
+    process and the integer gains commanded; returns it and its packets.
+    ``kw`` goes to the pipeline."""
     CommandBlock.reset_instance_counts()
     got = {"cor": [], "subsel": [], "pbeam": [], "ibeam": []}
     store = MemoryStore()
@@ -1670,7 +1703,7 @@ def fx_driver(cfg, src, qs: float, gains_np) -> tuple[XEnginePipeline, dict]:
             cfg, senders={b: got["pbeam"].append
                           for b in range(cfg.nbeam // 2)})],
         ibeam_outputs=[sink.IBeamOutput(cfg, send=got["ibeam"].append)],
-        device="cuda")
+        **{"device": "cuda", **kw})
     load_gains(pipe, store, gains_np)
     return pipe, got
 
@@ -2053,6 +2086,599 @@ def run_schedules_path(dev, cfg, blocks, slow) -> dict:
     return counts
 
 
+#: the seventh path: the transient recorder and the control plane
+RECORD_CFG = DRIVER_CFG.replace(**TPU_ENGINES)
+#: the history ring of the in-process runs: 10 X/B frames (649 MB at full
+#: width); two files of one window each
+RECORD_NFRAME = 10
+#: the CLI run: slow dumps of 4 windows against a golden file of one gulp,
+#: a 0.7 GB history ring (10 frames at full width)
+CLI_ACC_LEN_SLOW = 9600
+CLI_BUFGBYTES = 0.7
+
+
+def record_dir() -> Path:
+    """A directory for dump files beside this script (on the checkout's
+    filesystem, where O_DIRECT may be accepted), removed after the path."""
+    return Path(tempfile.mkdtemp(prefix="_record_",
+                                 dir=Path(__file__).resolve().parent))
+
+
+class PushClock:
+    """Wraps a pipeline's ``history.push``: the start and length of every
+    push, and the spans in which a dump's ``trigger`` ran."""
+
+    def __init__(self, pipe):
+        self.starts, self.lengths, self.dumps = [], [], []
+        push, trigger = pipe.history.push, pipe.dumper.trigger
+
+        def timed_push(frame):
+            t0 = time.perf_counter()
+            push(frame)
+            self.starts.append(t0)
+            self.lengths.append(time.perf_counter() - t0)
+
+        def timed_trigger(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return trigger(*a, **k)
+            finally:
+                self.dumps.append((t0, time.perf_counter()))
+
+        pipe.history.push = timed_push
+        pipe.dumper.trigger = timed_trigger
+
+    def push_ms(self) -> float:
+        return 1e3 * float(np.median(self.lengths))
+
+    def gap_during_dump_ms(self):
+        """The longest gap between two push starts that overlaps a dump,
+        or None where no push fell into one."""
+        gaps = [(b - a) for a, b in zip(self.starts, self.starts[1:])
+                if any(a < e and b > s for s, e in self.dumps)]
+        return 1e3 * max(gaps) if gaps else None
+
+
+def dump_files_match(files, gulp_at, ntime_gulp: int, what: str) -> None:
+    """Every file's bytes are the gulps fed in (``gulp_at(i)``, gulp i of
+    the stream) from its header's seq0 on."""
+    check(len(files) > 0, f"{what}: no dump files")
+    for f in files:
+        hdr, data = TriggerFileSource(str(f)).read()
+        g0, n = hdr["seq0"] // ntime_gulp, hdr["ntime"] // ntime_gulp
+        check(hdr["seq0"] % ntime_gulp == 0 and n >= 1
+              and n * ntime_gulp == hdr["ntime"],
+              f"{what}: {Path(f).name} header {hdr['seq0']}, "
+              f"{hdr['ntime']}")
+        for k in range(n):
+            check(np.array_equal(
+                data[k * ntime_gulp:(k + 1) * ntime_gulp], gulp_at(g0 + k)),
+                f"{what}: {Path(f).name} gulp {k} differs from the input")
+
+
+def timed_writes(dumper) -> list:
+    """Wraps ``dumper._write_file``: (bytes, seconds) of every file."""
+    out = []
+    write = dumper._write_file
+
+    def timed(fname, header, data):
+        t0 = time.perf_counter()
+        write(fname, header, data)
+        out.append((data.nbytes, time.perf_counter() - t0))
+
+    dumper._write_file = timed
+    return out
+
+
+def mb_s(writes: list) -> float:
+    return sum(n for n, _ in writes) / sum(s for _, s in writes) / 1e6
+
+
+def wait_idle(block, before=None, timeout_s: float = 120.0) -> list:
+    """Wait for a dump thread's end: ``state`` idle with other
+    ``last_files`` than ``before`` (the previous dump's); its files."""
+    deadline = time.monotonic() + timeout_s
+    while (block.stats.get("state") != "idle"
+           or block.stats.get("last_files") == before):
+        check(time.monotonic() < deadline, "dump thread did not end")
+        time.sleep(0.02)
+    return block.stats["last_files"]
+
+
+def recorder_driver(dev, cfg, blocks, store, history: bool, sub: list):
+    """The driver over the golden windows with a subselection sink
+    collecting in process, optionally with the history ring."""
+    CommandBlock.reset_instance_counts()
+    pipe = XEnginePipeline(
+        cfg, GoldenSource(cfg, blocks), store=store, sync_time=SYNC_TIME,
+        subsel_outputs=[sink.CorrPartOutput(cfg, send=sub.append)],
+        history_nbyte=RECORD_NFRAME * cfg.gulp_nbyte if history else 0,
+        device=dev.type)
+    command(store, pipe.subsel_cmd.command_key, "bl",
+            baselines=DRIVER_BASELINES)
+    return pipe
+
+
+def subsel_matches(cfg, sub: list, truth: list, what: str) -> None:
+    windows, _, _ = decode_streams(cfg, sub, [], [], len(truth))
+    for w, ((bl, sr, si), want) in enumerate(zip(windows, truth)):
+        check(bl is not None and np.array_equal(sr, want["sub"][0])
+              and np.array_equal(si, want["sub"][1]),
+              f"{what}: window {w} subselection vs plain")
+
+
+def replay_xb(dev, cfg, files, gains_np, truth, fast_plain) -> None:
+    """Each file through XEngineRunner on the card: the fast dump equal to
+    the plain correlator's for its window, subselection and VLBI exact,
+    power within rtol 1e-4."""
+    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
+    pairs = cs.baselines_to_inputs(DRIVER_BASELINES)
+    for f in files:
+        src = TriggerFileSource(str(f))
+        w = src.header["seq0"] // cfg.acc_len
+        runner = XEngineRunner(cfg, dev, gains=gains, subsel_pairs=pairs,
+                               autostartat=src.header["seq0"])
+        prods = list(runner.run(src.gulps(cfg.ntime_gulp)))
+        check(len(prods) == 1, f"replay of {Path(f).name}: {len(prods)} "
+              "calls")
+        prod = prods[0]
+        fast = dense_vis(runner.state.vis_fast, cfg)
+        check(vis_equal(fast, fast_plain[w]),
+              f"replay of window {w}: fast dump vs plain")
+        want = truth[w]
+        check(np.array_equal(prod["subsel"][0], want["sub"][0])
+              and np.array_equal(prod["subsel"][1], want["sub"][1]),
+              f"replay of window {w}: subsel vs plain")
+        check(np.array_equal(prod["vlbi"], want["vlbi"]),
+              f"replay of window {w}: VLBI not exact")
+        check(power_close(torch.from_numpy(prod["bf_power"]), want["power"]),
+              f"replay of window {w}: beam power vs plain")
+        print(f"[record] replay of {Path(f).name} (window {w}) through "
+              "XEngineRunner: fast dump, subsel and VLBI exact, power "
+              "within rtol 1e-4", flush=True)
+
+
+def run_recorder_xb(dev, card: str, blocks, gains_np, truth, tmp: Path
+                    ) -> None:
+    """The X/B recorder in process: the driver without and with a history
+    ring of 10 frames on a ``kv://`` store, a trigger through the client
+    while the ring fills and one after the run, the files held to the
+    golden gulps and replayed, the same frames written with O_DIRECT."""
+    cfg = RECORD_CFG
+    nwin = len(blocks)
+    ngulp = nwin * cfg.acc_len // cfg.ntime_gulp
+    gulps = GoldenSource(cfg, blocks).gulps
+    bits = ngulp * cfg.gulp_nbyte * 8
+    fast_plain = []
+    for block in blocks:
+        packed = torch.from_numpy(block.reshape(cfg.acc_len, cfg.nchan,
+                                                cfg.ninput)).to(dev)
+        fast_plain.append(correlate_chan_major(chan_major(packed, "tci")))
+        del packed
+    sub = []
+    pipe = recorder_driver(dev, cfg, blocks, MemoryStore(), False, sub)
+    t0 = time.perf_counter()
+    pipe.run(ngulp, timeout_s=600)
+    plain_gbps = bits / (time.perf_counter() - t0) / 1e9
+    subsel_matches(cfg, sub, truth, "[record] driver without the ring")
+
+    server = StoreServer("127.0.0.1", 0)
+    kv = f"kv://127.0.0.1:{server.port}"
+    try:
+        store = connect(kv)
+        sub = []
+        pipe = recorder_driver(dev, cfg, blocks, store, True, sub)
+        clock = PushClock(pipe)
+        control = PipelineControl(CorrControlClient(store=store,
+                                                    timeout_s=30.0),
+                                  socket.gethostname(), 0)
+        live = tmp / "live"
+        live.mkdir()
+
+        def trigger_while_filling():
+            while pipe.history.count < 3 and not pipe._stop.is_set():
+                time.sleep(0.001)
+            control.triggered_dump.trigger(ntime_per_file=cfg.acc_len,
+                                           nfile=2, dump_path=str(live))
+
+        th = threading.Thread(target=trigger_while_filling, daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        pipe.run(ngulp, timeout_s=600)
+        ring_gbps = bits / (time.perf_counter() - t0) / 1e9
+        th.join(60)
+        subsel_matches(cfg, sub, truth, "[record] driver with the ring")
+        first = wait_idle(pipe.dump_cmd)
+        dump_files_match(first, gulps.__getitem__, cfg.ntime_gulp,
+                         "[record] dump while the ring filled")
+        gap = clock.gap_during_dump_ms()
+        shutil.rmtree(live)
+
+        # after the run: the ring holds windows 1 and 2
+        writes = timed_writes(pipe.dumper)
+        after = tmp / "after"
+        after.mkdir()
+        resp = control.triggered_dump.trigger(
+            ntime_per_file=cfg.acc_len, nfile=2, dump_path=str(after))
+        check(resp["status"] == "normal", f"trigger: {resp}")
+        files = wait_idle(pipe.dump_cmd, first)
+        check(len(files) == 2 and [TriggerFileSource(f).header["seq0"]
+                                   for f in files]
+              == [cfg.acc_len, 2 * cfg.acc_len],
+              f"[record] files after the run: {files}")
+        dump_files_match(files, gulps.__getitem__, cfg.ntime_gulp,
+                         "[record] dump after the run")
+        print(f"[record] {len(files)} files of the trigger after the run "
+              "hold the golden gulps of windows 1 and 2 byte for byte",
+              flush=True)
+        replay_xb(dev, cfg, files, gains_np, truth, fast_plain)
+        direct = sink.TriggeredDump(pipe.history, dump_path=str(tmp),
+                                    file_prefix="direct", direct=True)
+        dwrites = timed_writes(direct)
+        dfiles = direct.trigger(cfg.acc_len, nfile=2)
+        for a, b in zip(files, dfiles):
+            check(filecmp.cmp(a, b, shallow=False),
+                  f"[record] {Path(b).name} differs from the buffered file")
+        accepted = direct.last_direct
+        shutil.rmtree(after)
+        for f in dfiles:
+            os.remove(f)
+        rtt = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            control.corr.set_acc_length(cfg.acc_len)
+            rtt.append(time.perf_counter() - t0)
+        store.close()
+    finally:
+        server.close()
+    print(f"[{card}] HistoryRing.push of an X/B frame "
+          f"({cfg.gulp_nbyte / 1e6:.1f} MB): {clock.push_ms():.3f} ms "
+          f"(median of {len(clock.lengths)})", flush=True)
+    print(f"[{card}] driver over {nwin} windows with a subselection sink: "
+          f"{plain_gbps:.3f} Gb/s without the history ring, {ring_gbps:.3f} "
+          f"Gb/s with it ({RECORD_NFRAME} frames, "
+          f"{RECORD_NFRAME * cfg.gulp_nbyte / 1e6:.0f} MB)", flush=True)
+    print(f"[{card}] longest gap between two ingest pushes while a dump "
+          f"ran: " + ("no push fell into a dump" if gap is None
+                      else f"{gap:.3f} ms")
+          + f" (median gap {1e3 * float(np.median(np.diff(clock.starts))):.3f}"
+          " ms)", flush=True)
+    print(f"[{card}] dump of {sum(n for n, _ in writes) / 1e6:.0f} MB: "
+          f"{mb_s(writes):.1f} MB/s buffered, {mb_s(dwrites):.1f} MB/s with "
+          f"dump_direct; O_DIRECT {'accepted' if accepted else 'refused'} by "
+          f"the dump directory's filesystem (the direct run was written "
+          f"{'with O_DIRECT' if accepted else 'buffered'})", flush=True)
+    print(f"[{card}] kv:// command round trip (CorrControl.set_acc_length "
+          f"through a StoreServer in process): "
+          f"{1e3 * float(np.median(rtt)):.3f} ms median of {len(rtt)}",
+          flush=True)
+
+
+def run_recorder_fx(dev, card: str, gains_np, qs: float, tmp: Path) -> None:
+    """One int8 FX window at full width with the ADC history ring (5
+    frames): the dump, triggered through the client, equals the ADC fed
+    in, and its replay through XEngineRunner(fx=True) gives the live run's
+    packed bytes and fast dump exactly (the dump starts at the stream's
+    first frame, where the live FIR history was zero, as the runner's)."""
+    cfg = FX_CFG.replace(acc_len_slow=FX_CFG.acc_len)
+    adc = adc_windows(cfg, 1, SEED + 7)[0]
+    ngulp = cfg.acc_len // cfg.ntime_gulp
+    frame_nbyte = adc.nbytes // ngulp
+    packed = {}
+    channelize = pfb.channelize_pack_imajor
+
+    def keep(label):
+        def wrapped(*a, **k):
+            out = channelize(*a, **k)
+            packed[label] = out.clone()
+            return out
+        return wrapped
+
+    live_fast = []
+    pfb.channelize_pack_imajor = keep("live")
+    try:
+        pipe, _ = fx_driver(cfg, AdcWindowSource(cfg, adc), qs, gains_np,
+                            history_nbyte=ngulp * frame_nbyte,
+                            device=dev.type)
+        check(pipe.history.nframe == ngulp, "[record FX] ring frames")
+        clock = PushClock(pipe)
+        emit = pipe._emit
+
+        def keep_fast(out, t, dec, slow_dec):
+            emit(out, t, dec, slow_dec)
+            live_fast.append(Vis(*(p.clone() for p in pipe._dense("fast"))))
+
+        pipe._emit = keep_fast
+        pipe.run(ngulp, timeout_s=600)
+        control = PipelineControl(CorrControlClient(store=pipe.dump_cmd.store,
+                                                    timeout_s=30.0),
+                                  socket.gethostname(), 0)
+        control.triggered_dump.trigger(ntime_per_file=adc.shape[0], nfile=1,
+                                       dump_path=str(tmp))
+        files = wait_idle(pipe.dump_cmd)
+        check(len(files) == 1, f"[record FX] files: {files}")
+        hdr, data = TriggerFileSource(files[0]).read()
+        check(hdr["adc"] and hdr["nbit"] == 8 and hdr["seq0"] == 0
+              and np.array_equal(data, adc),
+              "[record FX] dumped ADC differs from the ADC fed in")
+        pfb.channelize_pack_imajor = keep("replay")
+        runner = XEngineRunner(
+            cfg, dev, gains=bf.BeamGains(*(torch.from_numpy(x).to(dev)
+                                           for x in gains_np)),
+            fx=True, quant_scale=qs)
+        n = adc.shape[0] // ngulp
+        prods = list(runner.run((k * cfg.ntime_gulp, data[k * n:(k + 1) * n])
+                                for k in range(ngulp)))
+    finally:
+        pfb.channelize_pack_imajor = channelize
+    check(len(prods) == 1 and len(live_fast) == 1,
+          f"[record FX] {len(prods)} replay calls, {len(live_fast)} live "
+          "dumps")
+    check(torch.equal(packed["replay"], packed["live"]),
+          "[record FX] replayed packed bytes differ from the live run's")
+    check(vis_equal(dense_vis(runner.state.vis_fast, cfg), live_fast[0]),
+          "[record FX] replayed fast dump differs from the live run's")
+    os.remove(files[0])
+    print(f"[record FX] the dump ({data.nbytes} B of int8 ADC) equals the "
+          "ADC fed in; its replay through XEngineRunner(fx=True) gives the "
+          "live run's packed bytes and fast dump exactly", flush=True)
+    print(f"[{card}] HistoryRing.push of an FX frame "
+          f"({frame_nbyte / 1e6:.1f} MB of int8 ADC): {clock.push_ms():.3f} "
+          f"ms (median of {len(clock.lengths)})", flush=True)
+
+
+def golden_gulp_files(dev, cfg, tmp: Path, nrep: int) -> tuple:
+    """Golden vectors of one gulp at full width: ``in.dat``, the first
+    ``ntime_gulp`` spectra of the reference's RNG stream, and ``corr.dat``,
+    their correlation ``nrep`` times over (an integration of ``nrep``
+    gulps of the looped file) computed by the plain correlator on the card
+    and anchored to the host truth on 4 channels.  Returns the paths and
+    the gulp."""
+    g = cfg.ntime_gulp
+    din = tmp / "in.dat"
+    golden.write_input_file(str(din), g, cfg.nchan, cfg.nstand, cfg.npol, g)
+    _, gulp = golden.read_dat(str(din))
+    gulp = gulp.reshape(g, cfg.nchan, cfg.ninput).copy()  # writable
+    packed = torch.from_numpy(gulp).to(dev)
+    vis = correlate_chan_major(chan_major(packed, "tci"))
+    hvr, hvi = golden.host_corr_int32(
+        gulp[:, :4].reshape(g, 4, cfg.nstand, cfg.npol))
+    check(np.array_equal(vis.real[:4].cpu().numpy(), hvr)
+          and np.array_equal(vis.imag[:4].cpu().numpy(), hvi),
+          "golden gulp: plain correlator vs host on 4 channels")
+    dcorr = tmp / "corr.dat"
+    write_corr_dat(str(dcorr), vis, cfg, nrep * g)
+    return din, dcorr, gulp
+
+
+def write_corr_dat(path: str, vis: Vis, cfg, acc_len: int) -> None:
+    """One integration of a golden correlation file: dense int32 planes
+    [nchan, ninput, ninput] times ``acc_len // ntime_gulp`` as complex128
+    [1, nchan, nstand, nstand, npol, npol] (``golden.write_corr_file``'s
+    layout)."""
+    nrep = acc_len // cfg.ntime_gulp
+    ns, npol = cfg.nstand, cfg.npol
+    meta = {"time": 0.0, "acc_len": acc_len, "ntime": 1, "nstand": ns,
+            "npol": npol, "nchan": cfg.nchan, "seed": golden.DEFAULT_SEED,
+            "shape": [1, cfg.nchan, ns, ns, npol, npol],
+            "dtype": "np.complex", "type": "random"}
+    with open(path, "wb") as fh:
+        fh.write(json.dumps(meta).encode() + b"\n")
+        for c in range(cfg.nchan):
+            z = torch.complex(vis.real[c].double(), vis.imag[c].double())
+            z = (z * nrep).reshape(ns, npol, ns, npol).permute(0, 2, 1, 3)
+            fh.write(z.contiguous().cpu().numpy().tobytes())
+
+
+def manager_rpc(store, host: str, cmd: str, seq: str, wait_s: float = 60.0,
+                **kwargs) -> dict:
+    """One RPC to the host manager; the response's ``val``."""
+    key, resp_key = (f"/cmd/corr/x/{host}/xctrl",
+                     f"/resp/corr/x/{host}/xctrl")
+    store.put(key, json.dumps({"cmd": cmd, "id": seq,
+                               "val": {"kwargs": kwargs}}))
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        raw = store.get(resp_key)
+        if raw and json.loads(raw).get("id") == seq:
+            return json.loads(raw)["val"]
+        time.sleep(0.05)
+    raise RuntimeError(f"manager did not answer {cmd}")
+
+
+def poll(fn, what: str, timeout_s: float, poll_s: float = 0.2):
+    """``fn()`` until it returns something true, for at most
+    ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        v = fn()
+        if v:
+            return v
+        time.sleep(poll_s)
+    raise RuntimeError(f"timed out: {what}")
+
+
+def run_manager_cli(dev, card: str, tmp: Path, cfg=LWA352) -> None:
+    """``xeng_manager --serve-kv`` as a subprocess; its controller starts
+    the port's CLI on the golden vectors at full width with ``--etcdhost
+    kv://``, ``--bufgbytes 0.7`` and ``--dump-direct``; the client arms it
+    (``arm_and_wait`` with ``acc_len``), triggers a dump, and the manager
+    stops it: exit code 0 with every slow dump equal to the golden file."""
+    din, dcorr, gulp = golden_gulp_files(dev, cfg, tmp,
+                                         CLI_ACC_LEN_SLOW // cfg.ntime_gulp)
+    port = free_tcp_port()
+    kv = f"kv://127.0.0.1:{port}"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    log_path = tmp / "manager.log"
+    log = open(log_path, "wb")
+    t_start = time.perf_counter()
+    mgr = subprocess.Popen(
+        [sys.executable, "-m",
+         "caltech_bifrost_dsp_tpu_torch.scripts.xeng_manager",
+         "--serve-kv", str(port), "--pidfile-dir", str(tmp)],
+        cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    store = None
+    try:
+        def connected():
+            try:
+                return connect(kv)
+            except OSError:
+                return None
+
+        store = poll(connected, "the manager's kv:// store", 60)
+        host = socket.gethostname()
+        args = ["--fakesource", "--testdatain", str(din), "--testdatacorr",
+                str(dcorr), "--testdatacorr_acc_len", str(CLI_ACC_LEN_SLOW),
+                "--nstand", str(cfg.nstand), "--nchan", str(cfg.nchan),
+                "--nbeam", str(cfg.nbeam), "--ntime_gulp",
+                str(cfg.ntime_gulp), "--acc_len", str(cfg.acc_len),
+                "--acc_len_slow", str(CLI_ACC_LEN_SLOW), "--etcdhost", kv,
+                "--bufgbytes", str(CLI_BUFGBYTES), "--dump-direct",
+                "--device", dev.type]
+        r = manager_rpc(store, host, "start_pipeline", "start",
+                        pipeline_id=0, extra_args=args)
+        check(r["status"] == "normal" and r["response"]["ok"],
+              f"start_pipeline: {r}")
+        client = CorrControlClient(store=store, timeout_s=60.0)
+        pl = PipelineControl(client, host, 0)
+
+        def corr_stats():
+            return pl.corr.get_status().get("stats", {})
+
+        poll(lambda: corr_stats().get("state") == "running",
+             "the CLI pipeline running", 180)
+        t_up = time.perf_counter() - t_start
+        # two slow dumps before the arm: an arm that skips a slow boundary
+        # leaves the slow accumulator off its grid (ROADMAP queue 3)
+        poll(lambda: corr_stats()["curr_sample"] >= 2 * CLI_ACC_LEN_SLOW,
+             "two slow dumps", 300)
+        # a host-bound driver runs the stream slower than real time, so the
+        # start is taken from the stream's position, not the wall clock
+        s0, t0 = corr_stats()["curr_sample"], time.time()
+        s1 = poll(lambda: (corr_stats()["curr_sample"] > s0
+                           and corr_stats()["curr_sample"]), "progress", 60)
+        rate = (s1 - s0) / (time.time() - t0)
+        status = pl.corr.get_status()
+        ahead = max(5 * cfg.acc_len, int(rate * 10))
+        delay = ((s1 + ahead) / cfg.spectra_rate_hz
+                 - (time.time() - status["sync_time"]))
+        t0 = time.perf_counter()
+        start = CorrelatorControl(client, [pl]).arm_and_wait(
+            delay_s=delay, acc_len=cfg.acc_len, timeout_s=180.0)
+        t_arm = time.perf_counter() - t0
+        rtt = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pl.corr.set_acc_length(cfg.acc_len)
+            rtt.append(time.perf_counter() - t0)
+        dumps = tmp / "cli_dumps"
+        dumps.mkdir()
+        r = pl.triggered_dump.trigger(ntime_per_file=cfg.acc_len, nfile=1,
+                                      dump_path=str(dumps))
+        check(r["status"] == "normal", f"trigger: {r}")
+        st = poll(lambda: (lambda s: s.get("state") == "idle"
+                           and s.get("last_files") and s)(
+            pl.triggered_dump.get_status().get("stats", {})),
+            "the CLI pipeline's dump", 120)
+        files = st["last_files"]
+        dump_files_match(files, lambda i: gulp, cfg.ntime_gulp,
+                         "[record CLI] dump of the CLI pipeline")
+        direct = st.get("last_direct")
+        for f in files:
+            os.remove(f)
+        r = manager_rpc(store, host, "stop_pipeline", "stop", wait_s=240,
+                        pipeline_id=0, timeout_s=180.0)
+        check(r["status"] == "normal" and r["response"].get("returncode")
+              == 0, f"stop_pipeline: {r}")
+    finally:
+        if store is not None:
+            store.close()
+        mgr.send_signal(signal.SIGTERM)
+        try:
+            mgr.wait(60)
+        except subprocess.TimeoutExpired:
+            mgr.kill()
+            mgr.wait()
+        log.close()
+    text = log_path.read_text(errors="replace")
+    m = re.findall(r"golden check: (\d+)/(\d+) passed", text)
+    check(mgr.returncode == 0 and m and int(m[-1][1]) >= 1
+          and m[-1][0] == m[-1][1],
+          f"[record CLI] manager rc {mgr.returncode}, golden {m}; log tail:"
+          f"\n{text[-3000:]}")
+    print(f"[record CLI] xeng_manager --serve-kv started the port's CLI at "
+          f"{cfg.nstand} stands x {cfg.nchan} channels ({t_up:.1f} s to "
+          f"'running'); arm_and_wait armed it at spectra {start} "
+          f"({t_arm:.1f} s, stream at {rate:.0f} spectra/s); the dump of "
+          f"{len(files)} file equals the golden gulps (O_DIRECT "
+          f"{'accepted' if direct else 'refused'}); stopped with exit code 0,"
+          f" golden check {m[-1][0]}/{m[-1][1]} slow dumps", flush=True)
+    print(f"[{card}] kv:// command round trip to the CLI pipeline in another "
+          f"process: {1e3 * float(np.median(rtt)):.3f} ms median of "
+          f"{len(rtt)}", flush=True)
+
+
+def free_tcp_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_etcd_wire() -> None:
+    """One command round trip over the etcd v3 wire protocol: the port's
+    Etcd3Client against an Etcd3Server in process.  Does not run without
+    ``grpc``, and says so."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        print("[record] etcd3 wire: this phase did not run because grpc is "
+              "not installed on this host", flush=True)
+        return
+    server = Etcd3Server("127.0.0.1", 0)
+    store = connect("127.0.0.1", server.port)
+    try:
+        CommandBlock.reset_instance_counts()
+        blk = CommandBlock("Corr", store=store, host="etcdhost")
+        blk.define_command_key("acc_len", type=int, initial_val=2400)
+        client = CorrControlClient(store=store, timeout_s=30.0)
+        t0 = time.perf_counter()
+        r = client.send_command("etcdhost", 0, "Corr", blk.instance_id,
+                                acc_len=4800)
+        ms = 1e3 * (time.perf_counter() - t0)
+        blk.update_command_vals()
+        check(r["status"] == "normal" and blk.command_vals["acc_len"] == 4800,
+              f"etcd3 wire round trip: {r}")
+        blk.close()
+    finally:
+        store.close()
+        server.stop()
+    print(f"[record] etcd3 wire: a command round trip through Etcd3Client "
+          f"and Etcd3Server in {ms:.3f} ms", flush=True)
+
+
+def run_record_path(dev, card: str, blocks, gains_np, qs: float, truth
+                    ) -> dict:
+    """The seventh path, control and record: the transient recorder in
+    process (X/B and FX), the CLI under the host manager, the etcd3 wire.
+    Returns the launch counts."""
+    tmp = record_dir()
+    try:
+        zero_counts()
+        run_recorder_xb(dev, card, blocks, gains_np, truth, tmp)
+        run_recorder_fx(dev, card, gains_np, qs, tmp)
+        counts = read_counts()
+        run_manager_cli(dev, card, tmp)
+        run_etcd_wire()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in (DEFAULT_CORR, "beamform_products", "subsel_gather",
+                 "pfb_direct"):
+        check(counts[name] > 0, f"[record] {name} not launched")
+    print(f"[record] kernel launches: {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2106,10 +2732,13 @@ def main() -> int:
     wi = run_wire_path(dev, card, blocks, gains_np, qs, truth, slow, ref)
     # the correlator schedules without an engine name
     sc = run_schedules_path(dev, DRIVER_CFG, blocks, slow)
+    # path 7, control and record: the transient recorder, the CLI under the
+    # host manager, the etcd3 wire
+    rc = run_record_path(dev, card, blocks, gains_np, qs, truth)
     del blocks, truth, slow
     launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
-                + wi[name] + sc[name] for name in KERNELS}
-    print(f"kernel launches over the six paths and the schedules run: "
+                + wi[name] + sc[name] + rc[name] for name in KERNELS}
+    print(f"kernel launches over the seven paths and the schedules run: "
           f"{launches}", flush=True)
 
     cfg = LWA352

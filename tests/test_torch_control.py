@@ -183,8 +183,21 @@ def test_store_matches_jax_and_connect():
     assert pst.get_prefix("/") == jst.get_prefix("/")
     assert pst.get("/a/1") is None
     assert isinstance(store.connect(None), store.MemoryStore)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        store.connect("etcd-host")
+    assert isinstance(store.connect(""), store.MemoryStore)
+    # an etcd host gives the etcd3 wire client, which connects lazily, or
+    # where grpc is missing an ImportError (kv:// stores:
+    # tests/test_torch_netstore.py)
+    from caltech_bifrost_dsp_tpu_torch.control.etcd3_wire import Etcd3Client
+
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="grpc"):
+            store.connect("etcd-host")
+    else:
+        etcd = store.connect("etcd-host")
+        assert isinstance(etcd, Etcd3Client)
+        etcd.close()
 
 
 def test_monitor_bridge_matches_jax():

@@ -10,8 +10,9 @@ the same stream sample, through the control store, so that they land at
 the same gulp in both.
 
 Also here: the golden checkfile gate, a sequence break, and the CLI
-(``--subsel-dest`` on a loopback socket; every flag that is not ported
-exits 2, and so does ``--mesh`` on a host without the CUDA devices).
+(``--subsel-dest`` on a loopback socket; ``--etcdhost``, ``--bufgbytes``
+and ``--dump-direct`` run; ``--mesh`` on a host without the CUDA devices
+exits 2).
 """
 
 import dataclasses
@@ -306,17 +307,26 @@ def test_per_gulp_mode_equals_batched():
 @pytest.mark.parametrize("arg", ["mesh", "stub_device_ms", "history_nbyte",
                                  "dump_direct"])
 def test_unported_driver_options_raise(arg):
-    # mesh= is ported (tests/test_torch_mesh_driver.py); what still raises
-    # is a mesh that lies on another device type than ``device``
+    """What the driver still refuses.  ``mesh=`` is ported
+    (tests/test_torch_mesh_driver.py): a mesh on another device type than
+    ``device`` raises.  ``stub_device_ms=`` is not ported.  The history
+    ring is ported (tests/test_torch_trigger.py): a ring smaller than one
+    frame raises, with or without ``dump_direct``, as in the JAX driver."""
     from caltech_bifrost_dsp_tpu_torch.parallel.mesh import make_mesh
 
-    value = {"mesh": make_mesh(1, 1, devices=["cpu"]),
-             "stub_device_ms": 1.0, "history_nbyte": 1,
-             "dump_direct": True}[arg]
+    kwargs = {"mesh": {"mesh": make_mesh(1, 1, devices=["cpu"])},
+              "stub_device_ms": {"stub_device_ms": 1.0},
+              "history_nbyte": {"history_nbyte": 1},
+              "dump_direct": {"dump_direct": True,
+                              "history_nbyte": PCFG.gulp_nbyte - 1}}[arg]
     device = "cuda" if arg == "mesh" else "cpu"
-    with pytest.raises((NotImplementedError, ValueError)):
+    error = NotImplementedError if arg == "stub_device_ms" else ValueError
+    with pytest.raises(error):
         XEnginePipeline(PCFG, source.SyntheticSource(PCFG), device=device,
-                        **{arg: value})
+                        **kwargs)
+    if arg in ("history_nbyte", "dump_direct"):
+        with pytest.raises(ValueError):
+            JPipe(CFG, jsource.DummySource(CFG), **kwargs)
 
 
 def test_stage_failure_is_raised_by_run():
@@ -378,13 +388,17 @@ def test_cli_subsel_over_loopback_matches_jax_driver():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mesh", "2x4"], ["--xdp", "eth0"], ["--etcdhost", "localhost"],
-    ["--bufgbytes", "1"], ["--dump-direct"], ["--no-fakesource"]])
+    ["--mesh", "2x4"], ["--xdp", "eth0"], ["--etcdhost", "kv://"],
+    ["--bufgbytes", "0.001"], ["--dump-direct", "--bufgbytes", "0.001"],
+    ["--no-fakesource"]])
 def test_cli_unported_flags_exit_2(extra, capsys):
-    """Every flag that is not ported exits 2.  ``--mesh``, ``--xdp`` and
-    capture (no ``--fakesource``) are ported: they exit 2 only for want of
-    the CUDA devices they would run on, before any socket is bound
-    (capture on the CPU: ``tests/test_torch_over_the_wire.py``)."""
+    """Every flag is ported now.  ``--mesh``, ``--xdp`` and capture (no
+    ``--fakesource``) exit 2 only for want of the CUDA devices they would
+    run on, before any socket is bound (capture on the CPU:
+    ``tests/test_torch_over_the_wire.py``).  ``--etcdhost`` (a ``kv://``
+    store here), ``--bufgbytes`` and ``--dump-direct`` run on the CPU and
+    exit 0 (their pipeline commanded and triggered:
+    ``tests/test_torch_manager.py``)."""
     if extra in (["--xdp", "eth0"], ["--no-fakesource"]):
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")
@@ -393,17 +407,35 @@ def test_cli_unported_flags_exit_2(extra, capsys):
                              + extra) == 2
         assert "no CUDA device" in capsys.readouterr().err
         return
-    args = ["--fakesource", "--device", "cpu", "--ngulp", "1"]
-    wanted = "not ported"
-    if extra == ["--mesh", "2x4"]:
-        # --mesh is ported; it exits 2 only for want of CUDA devices
-        if torch.cuda.device_count() >= 8:
-            pytest.skip("8 CUDA devices are present")
-        args[2], wanted = "cuda", "CUDA devices"
+    if extra != ["--mesh", "2x4"]:
+        from caltech_bifrost_dsp_tpu_torch.control.netstore import \
+            StoreServer
+
+        srv = StoreServer(port=0)
+        if extra[0] == "--etcdhost":
+            extra = ["--etcdhost", f"kv://127.0.0.1:{srv.port}"]
+        try:
+            rc = pipeline.main(["--fakesource", "--device", "cpu", "--nstand",
+                                "16", "--nchan", "16", "--nbeam", "4",
+                                "--ntime_gulp", "48", "--acc_len", "240",
+                                "--acc_len_slow", "480", "--ngulp", "20",
+                                "-q"] + extra)
+            watchers = len(srv.hub.watchers)
+        finally:
+            srv.close()
+        assert rc == 0
+        assert "4 fast dumps, 2 slow dumps" in capsys.readouterr().out
+        # Corr, CorrAcc, Beamform and CorrSubsel watch their keys there
+        assert (watchers >= 4) == (extra[0] == "--etcdhost")
+        return
+    # --mesh exits 2 only for want of CUDA devices
+    if torch.cuda.device_count() >= 8:
+        pytest.skip("8 CUDA devices are present")
     with pytest.raises(SystemExit) as exc:
-        pipeline.main(args + extra)
+        pipeline.main(["--fakesource", "--device", "cuda", "--ngulp", "1"]
+                      + extra)
     assert exc.value.code == 2
-    assert wanted in capsys.readouterr().err
+    assert "CUDA devices" in capsys.readouterr().err
 
 
 def _polling(base):

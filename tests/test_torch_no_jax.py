@@ -1,9 +1,10 @@
-"""The port, its CLI, the FX bench and ``chip_smoke.py`` import without
-JAX and without any module of the JAX package, an ``XEnginePipeline`` runs
-on the CPU (unsharded and on a 2x2 mesh) in such a process, the port's
-native loader builds and loads its own library and leaves the JAX
-package's ``native/libcbd_native.so`` as it was, and the CLI and the bench
-refuse to run on a host without a card."""
+"""The port, its CLI, the operator scripts, the FX bench and
+``chip_smoke.py`` import without JAX and without any module of the JAX
+package (and without ``grpc``, which only an etcd store needs), an
+``XEnginePipeline`` runs on the CPU (unsharded and on a 2x2 mesh) in such
+a process, the port's native loader builds and loads its own library and
+leaves the JAX package's ``native/libcbd_native.so`` as it was, and the
+CLI and the bench refuse to run on a host without a card."""
 
 import os
 import subprocess
@@ -20,8 +21,12 @@ REPO = Path(__file__).resolve().parents[1]
 IMPORT_ALL = """
 import sys
 import caltech_bifrost_dsp_tpu_torch.config
+import caltech_bifrost_dsp_tpu_torch.control.client
 import caltech_bifrost_dsp_tpu_torch.control.command
+import caltech_bifrost_dsp_tpu_torch.control.etcd3_wire
+import caltech_bifrost_dsp_tpu_torch.control.manager
 import caltech_bifrost_dsp_tpu_torch.control.monitor
+import caltech_bifrost_dsp_tpu_torch.control.netstore
 import caltech_bifrost_dsp_tpu_torch.control.store
 import caltech_bifrost_dsp_tpu_torch.io.native
 import caltech_bifrost_dsp_tpu_torch.io.packets
@@ -38,9 +43,13 @@ import caltech_bifrost_dsp_tpu_torch.runtime.arming
 import caltech_bifrost_dsp_tpu_torch.runtime.driver
 import caltech_bifrost_dsp_tpu_torch.runtime.ring
 import caltech_bifrost_dsp_tpu_torch.runtime.runner
+import caltech_bifrost_dsp_tpu_torch.scripts.arm_correlator
 import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
+import caltech_bifrost_dsp_tpu_torch.scripts.monitor
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
+import caltech_bifrost_dsp_tpu_torch.scripts.xeng_manager
 import caltech_bifrost_dsp_tpu_torch.utils.proclog
+import caltech_bifrost_dsp_tpu_torch.utils.timeutils
 import chip_smoke
 from caltech_bifrost_dsp_tpu_torch.config import TINY
 from caltech_bifrost_dsp_tpu_torch.io.sink import CorrPartOutput
@@ -79,6 +88,60 @@ def _run(args):
     env["PYTHONPATH"] = str(REPO)
     return subprocess.run([sys.executable, *args], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+
+
+WITHOUT_GRPC = """
+import sys
+sys.modules["grpc"] = None  # as on a host without grpcio
+MODULES = [
+    "caltech_bifrost_dsp_tpu_torch.control.client",
+    "caltech_bifrost_dsp_tpu_torch.control.command",
+    "caltech_bifrost_dsp_tpu_torch.control.etcd3_wire",
+    "caltech_bifrost_dsp_tpu_torch.control.manager",
+    "caltech_bifrost_dsp_tpu_torch.control.monitor",
+    "caltech_bifrost_dsp_tpu_torch.control.netstore",
+    "caltech_bifrost_dsp_tpu_torch.control.store",
+    "caltech_bifrost_dsp_tpu_torch.io.sink",
+    "caltech_bifrost_dsp_tpu_torch.io.source",
+    "caltech_bifrost_dsp_tpu_torch.runtime.driver",
+    "caltech_bifrost_dsp_tpu_torch.scripts.arm_correlator",
+    "caltech_bifrost_dsp_tpu_torch.scripts.monitor",
+    "caltech_bifrost_dsp_tpu_torch.scripts.pipeline",
+    "caltech_bifrost_dsp_tpu_torch.scripts.xeng_manager",
+    "caltech_bifrost_dsp_tpu_torch.utils.timeutils",
+    "chip_smoke",
+]
+import importlib
+for m in MODULES:
+    importlib.import_module(m)
+from caltech_bifrost_dsp_tpu_torch.control.netstore import NetStore, StoreServer
+from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore, connect
+assert isinstance(connect(None), MemoryStore)
+srv = StoreServer(port=0)
+st = connect(f"kv://127.0.0.1:{srv.port}")
+assert isinstance(st, NetStore)
+st.put("/k", "v")
+assert st.get("/k") == "v"
+st.close()
+srv.close()
+try:
+    connect("somehost")
+except ImportError as e:
+    assert "grpc" in str(e), e
+else:
+    raise AssertionError("connect('somehost') did not raise ImportError")
+assert sys.modules["grpc"] is None
+print("no grpc")
+"""
+
+
+def test_port_imports_and_connects_without_grpc():
+    """Every module of the port imports where ``grpc`` is missing, the
+    in-process and ``kv://`` stores work, and an etcd host raises
+    ``ImportError`` naming grpc, with nothing put in its place."""
+    proc = _run(["-c", WITHOUT_GRPC])
+    assert proc.returncode == 0, proc.stderr
+    assert "no grpc" in proc.stdout
 
 
 def test_port_imports_without_jax():
