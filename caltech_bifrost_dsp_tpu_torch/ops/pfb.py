@@ -1,5 +1,6 @@
 """Polyphase filterbank channelizer and 4-bit requantizer (port of
-``caltech_bifrost_dsp_tpu/ops/pfb.py``, the parts the FX path runs).
+``caltech_bifrost_dsp_tpu/ops/pfb.py``, the parts the FX path and the
+offline upchannelizer run).
 
     raw ADC [ntime, ninput] -> FIR over ntap frames of L = 2*nchan samples
         -> real DFT, bins 0..nchan-1 -> clip(round(v * scale), -8, 7)
@@ -15,10 +16,15 @@ The JAX package has two spectral transforms (``cfg.pfb_fft_impl``
 "fft" and "matmul") and two channelizer engines; all compute the same
 function, bins 0..nchan-1 of the real DFT of each FIR frame.  The port
 has one channelizer for all of them: :func:`channelize_pack_imajor`.
+
+:func:`upchannelize` (the offline pipelines' fine channelizer) runs no
+kernel of the port's: the JAX package computes it outside any Pallas
+kernel, with ``jnp.fft.fft`` or two float32 matrix products.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -336,3 +342,64 @@ def channelize_pack_imajor(adc: torch.Tensor, window, cfg,
     return pfb_quantize_packed(adc, window, cfg.nchan, cfg.pfb_ntap,
                                quant_scale,
                                fast=cfg.pfb_precision == "bf16")
+
+
+def cdft_matrices(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Complex DFT as two f32 matrices [n, n] (cos, -sin)."""
+    k = np.arange(n)
+    ang = 2 * np.pi * np.outer(k, k) / n
+    return np.cos(ang).astype(np.float32), -np.sin(ang).astype(np.float32)
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """cuBLAS float32 and complex64 products in full float32 while the
+    block runs, whatever the caller set: TF32 would round the operands to
+    10 mantissa bits (the JAX package asks for ``Precision.HIGH``)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def upchannelize(x: torch.Tensor, nup: int, axis_time: int = 0,
+                 fft_impl: str = "fft") -> torch.Tensor:
+    """Blockwise (zero-overlap) fine channelization.
+
+    Reshapes time into (time, fine_time=nup) frames, FFTs over the fine
+    axis and fftshifts so fine channel 0 is the most-negative offset
+    (reference: lwa352-upchan-bf.py:94-97 over the 'fine_time' axis).
+    The fine axis is made last and contiguous before the transform.
+
+    Args:
+      x: complex [ntime, ...] voltages (time on ``axis_time``).
+      nup: fine channels per coarse channel.
+      fft_impl: "fft" (``torch.fft.fft``) or "matmul" (the two float32
+        DFT matrices of :func:`cdft_matrices`, full float32).
+
+    Returns:
+      complex64 [ntime//nup, nup, ...]: coarse time x fine channel.
+    """
+    x = torch.movedim(x, axis_time, 0)
+    ntime = x.shape[0]
+    if ntime % nup:
+        raise ValueError("ntime must be a multiple of nup")
+    frames = x.reshape((ntime // nup, nup) + tuple(x.shape[1:]))
+    frames = torch.movedim(frames, 1, -1).contiguous()   # [T, ..., nup]
+    if fft_impl == "matmul":
+        cos_m, msin_m = (torch.from_numpy(m).to(frames.device)
+                         for m in cdft_matrices(nup))
+        fr = frames.real.float()
+        fi = frames.imag.float()
+        with full_fp32_matmul():
+            re = fr @ cos_m - fi @ msin_m
+            im = fr @ msin_m + fi @ cos_m
+        fine = torch.complex(re, im)
+    elif fft_impl == "fft":
+        fine = torch.fft.fft(frames.to(torch.complex64), dim=-1)
+    else:
+        raise ValueError(f"unknown fft_impl {fft_impl!r}")
+    fine = torch.fft.fftshift(fine, dim=-1)
+    return torch.movedim(fine, -1, 1).to(torch.complex64)

@@ -10,7 +10,7 @@ also at a ragged shape, and the two that unpack their own tiles,
 ``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
 after the compiler's report of their registers and spills; the gather
 also timed alone, as a CUDA graph of bare launches, beside its wrapper),
-then drives seven paths of the port, each with the kernel launch counts
+then drives eight paths of the port, each with the kernel launch counts
 set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
@@ -57,7 +57,7 @@ selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
 ``corr_rows``, over the golden stream through their wrappers and holds
 their slow sums to the plain slow dump.
 
-The seventh path, control and record, comes last: the driver over the
+The seventh path, control and record, follows: the driver over the
 golden windows without and with a 10-frame history ring (649 MB) on a
 ``kv://`` store served in process, a trigger through the port's
 ``PipelineControl`` while the ring fills and one after the run; every file
@@ -76,6 +76,22 @@ is not).  It prints the ms of a ring push, the driver's rate with and
 without the ring, the longest push gap during a dump, the dump MB/s
 buffered and direct (and whether the filesystem took O_DIRECT) and the
 ``kv://`` round trips.
+
+The eighth path, offline replay and reception, ends the run: one golden
+window (2400 spectra x 192 channels x 704 inputs, 324 MB) through a
+``HistoryRing`` and ``TriggeredDump`` into a file, replayed by the
+port's ``upchan_bf`` (nup 32, 4 beams, accumulated powers and
+``--voltages``; gulp 0 and the last gulp, whose weights were recomputed
+at sample 1440, within rtol 1e-4, atol 1e-4 x max of float64 truths) and
+``upchan_imag`` (nup 2 over 384 fine channels: one integration equal to a
+float64 truth on 18 channels and Hermitian on all, then 720 frames and a
+480-frame tail summing exactly to it), through ``main`` where ``h5py``
+imports and otherwise through the same replay without the writers (a
+line says so); the three offline functions timed a gulp beside their
+bounds; then one driver run whose subselection, PBEAM and COR streams
+(paced at ``RX_COR_MBPS``) go to ``corr_part_rx``, ``beam_rx --capture``
+and ``corr_rx --cor-fmt``, each ``python -m`` in a process of its own,
+their files equal to the driver path's truths with no packet lost.
 
 Beside the four tensor-core kernels it times a library contraction as a
 yardstick, on earlier lines and labelled "contraction only":
@@ -134,7 +150,9 @@ from caltech_bifrost_dsp_tpu_torch.io import packets as pk
 from caltech_bifrost_dsp_tpu_torch.io import sink
 from caltech_bifrost_dsp_tpu_torch.io.source import (ADCSource,
                                                      SyntheticSource,
-                                                     TriggerFileSource)
+                                                     TriggerFileSource,
+                                                     sequence_header)
+from caltech_bifrost_dsp_tpu_torch.models import offline
 from caltech_bifrost_dsp_tpu_torch.models.xengine import (dense_vis, fx_step,
                                                           init_state,
                                                           xengine_step)
@@ -153,8 +171,11 @@ from caltech_bifrost_dsp_tpu_torch.ops.correlate import (Vis, chan_major,
 from caltech_bifrost_dsp_tpu_torch.ops.kernels import _build
 from caltech_bifrost_dsp_tpu_torch.parallel import mesh as pm
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
+from caltech_bifrost_dsp_tpu_torch.runtime.ring import HistoryRing
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
-from caltech_bifrost_dsp_tpu_torch.scripts import probe_subsel
+from caltech_bifrost_dsp_tpu_torch.scripts import (probe_subsel, upchan_bf,
+                                                   upchan_imag)
+from caltech_bifrost_dsp_tpu_torch.utils.codec import unpack_complex_np
 from caltech_bifrost_dsp_tpu_torch.verification import golden
 
 SEED = 0xdeadbeef
@@ -2679,6 +2700,495 @@ def run_record_path(dev, card: str, blocks, gains_np, qs: float, truth
     return counts
 
 
+#: the eighth path: one golden window dumped at full width (2400 spectra,
+#: 324 MB) and replayed by the offline CLIs
+OFFLINE_RA = "0.0,90.0,180.0,270.0"
+OFFLINE_DEC = "37.2398,20.0,60.0,-10.0"
+OFFLINE_GULP = 480
+#: fine channels of the imaging gate: both ends of the band and both sides
+#: of nine coarse channels' seams (coarse c holds fine 2c, 2c + 1 at nup 2)
+IMAG_CHANNELS = (0, 1, 2, 47, 48, 95, 96, 191, 192, 239, 240, 287, 288, 335,
+                 336, 381, 382, 383)
+#: the COR stream's pace for a Python ``recv`` loop in another process.
+#: Its 8 MB receive buffer (the most the card's host grants) rides out a
+#: stall of the receiver of 0.67 s at 100 Mb/s, 0.27 s at 250 Mb/s, where
+#: runs of this phase and of ``scripts/probe_rx.py`` lost packets
+#: (PERF.md section 6)
+RX_COR_MBPS = 100
+
+
+def offline_dump(tmp: Path, block: np.ndarray) -> str:
+    """One golden window through a ``HistoryRing`` of 5 gulp frames and
+    the port's ``TriggeredDump``; the file's path."""
+    cfg = LWA352
+    ring = HistoryRing(nbyte=5 * cfg.gulp_nbyte, frame_nbyte=cfg.gulp_nbyte)
+    ring.set_header(sequence_header(cfg, seq0=0, sync_time=SYNC_TIME),
+                    frame0_seq=0)
+    frames = block.reshape(-1, cfg.ntime_gulp * cfg.nchan * cfg.ninput)
+    for frame in frames:
+        ring.push(frame)
+    t0 = time.perf_counter()
+    files = sink.TriggeredDump(ring, dump_path=str(tmp)).trigger(
+        ntime_per_file=cfg.acc_len)
+    dt = time.perf_counter() - t0
+    check(len(files) == 1, f"[offline] dump wrote {files}")
+    h, data = TriggerFileSource(files[0]).read()
+    check(h["ntime"] == cfg.acc_len and np.array_equal(
+        data, block.reshape(data.shape)), "[offline] dump != golden window")
+    print(f"[offline] dump of {data.nbytes / 1e6:.1f} MB "
+          f"({cfg.acc_len} spectra x {cfg.nchan} channels x {cfg.ninput} "
+          f"inputs) written in {dt:.3f} s", flush=True)
+    return files[0]
+
+
+def have_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def run_cli(cli, argv: list, hdf5: bool, walls: dict, label: str):
+    """One offline CLI on the card: ``main`` where ``h5py`` imports (its
+    writer timed), else the same replay without the writers.  Puts the
+    wall seconds (and the writer's MB/s) into ``walls``; returns the
+    replay, or None where ``main`` ran."""
+    t0 = time.perf_counter()
+    if hdf5:
+        write, spans = cli.write, []
+
+        def timed(args, replay):
+            t = time.perf_counter()
+            write(args, replay)
+            spans.append(time.perf_counter() - t)
+
+        cli.write = timed
+        try:
+            check(cli.main(argv) == 0, f"[offline] {cli.__name__} exit code")
+        finally:
+            cli.write = write
+        replay = None
+    else:
+        replay = cli.Replay(cli.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    walls[label] = time.perf_counter() - t0
+    if hdf5:
+        out = Path(argv[argv.index("--output") + 1])
+        walls[label + " HDF5 MB/s"] = out.stat().st_size / spans[0] / 1e6
+    return replay
+
+
+def beam_truth(packed: np.ndarray, g0: int, weights: np.ndarray):
+    """Float64 beams [T', nbeam, F] of the gulp at ``g0``: ``np.fft``,
+    ``fftshift`` and the weight product in complex128."""
+    nup = 32
+    v = unpack_complex_np(packed[g0:g0 + OFFLINE_GULP]).astype(np.complex128)
+    T, nchan = OFFLINE_GULP // nup, v.shape[1]
+    frames = v.reshape(T, nup, nchan, -1)
+    fine = np.fft.fftshift(np.fft.fft(frames, axis=1), axes=1)
+    x = fine.transpose(2, 1, 0, 3).reshape(nchan * nup, T, -1)  # [F, T, I]
+    beams = np.matmul(x, weights.astype(np.complex128).transpose(1, 2, 0))
+    return beams.transpose(1, 2, 0)
+
+
+def fine_freqs(h: dict) -> np.ndarray:
+    """upchan-bf's fine-channel labels at nup 32: coarse channel c's fine
+    channel f at sfreq + c chan_bw + (f - 16) chan_bw / 32."""
+    chan_bw = h["bw_hz"] / h["nchan"]
+    return ((h["sfreq"] + np.arange(h["nchan"]) * chan_bw)[:, None]
+            + (np.arange(32) - 16) * chan_bw / 32).reshape(-1)
+
+
+def beams_close(got, want) -> bool:
+    """The beam gate: rtol 1e-4, atol 1e-4 x max|truth|."""
+    return bool(np.all(np.abs(got - want)
+                       <= 1e-4 * np.abs(want) + 1e-4 * np.abs(want).max()))
+
+
+def upchan_bf_phase(dev, path: str, tmp: Path, hdf5: bool) -> dict:
+    """upchan-bf at nup 32, 4 beams, accumulated and ``--voltages``; gulp 0
+    and the last gulp (weights recomputed at sample 1440) held to float64
+    truths.  Returns the wall times."""
+    h, data = TriggerFileSource(path).read()
+    packed = data.reshape(h["ntime"], h["nchan"], h["nstand"], h["npol"])
+    ngulp = h["ntime"] // OFFLINE_GULP
+    last = (ngulp - 1) * OFFLINE_GULP
+    chan_bw = h["bw_hz"] / h["nchan"]
+    ra = [float(x) for x in OFFLINE_RA.split(",")]
+    dec = [float(x) for x in OFFLINE_DEC.split(",")]
+    cfg = offline.OfflineBeamConfig(
+        nbeam=len(ra), ra_deg=ra, dec_deg=dec, nupchan=32,
+        enz_positions=np.random.RandomState(0).standard_normal(
+            [h["nstand"], 3]) * 100)
+    freqs = fine_freqs(h)
+    # the weights are recomputed at the first gulp at or past ntimestep
+    # samples (1440 for 1000), and hold for the last gulp (1920)
+    update = -(-cfg.ntimestep // OFFLINE_GULP) * OFFLINE_GULP
+    check(update <= last < update + cfg.ntimestep,
+          "[offline] no single weight recompute before the last gulp")
+    w0 = offline.compute_offline_weights(cfg, freqs, h["sync_time"])
+    w1 = offline.compute_offline_weights(cfg, freqs,
+                                         h["sync_time"] + update / chan_bw)
+    truth = {0: beam_truth(packed, 0, w0),
+             ngulp - 1: beam_truth(packed, last, w1)}
+    walls = {}
+    for mode in ("accumulate", "voltages"):
+        out = str(tmp / f"bf_{mode}.h5")
+        argv = ["--datain", path, "--output", out, "--ra-array", OFFLINE_RA,
+                "--dec-array", OFFLINE_DEC, "--nupchan", "32", "--gulp",
+                str(OFFLINE_GULP), "--device", dev.type] + (
+                    ["--voltages"] if mode == "voltages" else [])
+        replay = run_cli(upchan_bf, argv, hdf5, walls, f"bf {mode}")
+        if hdf5:
+            import h5py
+
+            with h5py.File(out, "r") as fh:
+                got_freqs = fh["frequencies"][()]
+                if mode == "accumulate":
+                    outs = list(fh["power"][()])
+                else:
+                    b = np.stack([fh[f"beam{k}"][()]
+                                  for k in range(len(ra))], 1)
+                    outs = list(b.reshape(ngulp, -1, *b.shape[1:]))
+        else:
+            got_freqs, outs = replay.freqs, replay.outs
+        check(np.array_equal(got_freqs, freqs), "[offline] bf frequencies")
+        check(len(outs) == ngulp, f"[offline] bf {len(outs)} gulps")
+        for g, want in truth.items():
+            if mode == "accumulate":
+                want = (np.abs(want) ** 2).mean(0)
+            err = float(np.abs(outs[g] - want).max() / np.abs(want).max())
+            check(np.isfinite(outs[g]).all() and beams_close(outs[g], want),
+                  f"[offline] bf {mode} gulp {g} vs float64 truth "
+                  f"(error {err:.3g} of max)")
+            print(f"[offline] upchan-bf {mode}, gulp {g}: max error "
+                  f"{err:.3g} of max|truth| (gate rtol 1e-4, atol 1e-4 x "
+                  f"max)", flush=True)
+    return walls
+
+
+def host_vis(packed: np.ndarray, k: int, t1: int) -> np.ndarray:
+    """Float64 visibilities of fine channel ``k`` at nup 2 over the first
+    ``t1`` samples: coarse k // 2, fine k % 2 after the fftshift."""
+    v = unpack_complex_np(packed[:t1, k // 2]).astype(np.complex128)
+    fine = np.fft.fftshift(np.fft.fft(v.reshape(t1 // 2, 2, -1), axis=1),
+                           axes=1)[:, k % 2]
+    return fine.T @ fine.conj()
+
+
+def hermitian(vis: np.ndarray) -> bool:
+    return all(np.array_equal(vis[c:c + 16],
+                              vis[c:c + 16].conj().transpose(0, 2, 1))
+               for c in range(0, len(vis), 16))
+
+
+def upchan_imag_phase(dev, path: str, tmp: Path, hdf5: bool) -> dict:
+    """upchan-imag at nup 2 over the whole band: one integration of 1200
+    frames, exact on ``IMAG_CHANNELS`` against float64 truths and
+    Hermitian on all; then integrations of 720 frames, the first closing
+    early and a partial tail, summing exactly to the whole."""
+    h, data = TriggerFileSource(path).read()
+    packed = data.reshape(h["ntime"], h["nchan"], h["nstand"], h["npol"])
+    nfine = 2 * h["nchan"]
+    walls, results = {}, {}
+    for nframe in (1200, 720):
+        out = str(tmp / f"vis_{nframe}.h5")
+        argv = ["--datain", path, "--output", out, "--nupchan", "2",
+                "--start-freq", "0", "--end-freq", str(nfine),
+                "--nframe-per-integration", str(nframe), "--device",
+                dev.type]
+        replay = run_cli(upchan_imag, argv, hdf5, walls, f"imag {nframe}")
+        if hdf5:
+            import h5py
+
+            with h5py.File(out, "r") as fh:
+                results[nframe] = list(fh["vis"][()])
+        else:
+            results[nframe] = replay.out
+    (full,), (early, tail) = results[1200], results[720]
+    check(full.shape == (nfine, h["nstand"] * h["npol"],
+                         h["nstand"] * h["npol"]),
+          f"[offline] imag shape {full.shape}")
+    for k in IMAG_CHANNELS:
+        check(np.array_equal(full[k].astype(np.complex128),
+                             host_vis(packed, k, h["ntime"])),
+              f"[offline] imag fine channel {k} vs float64 truth")
+    check(hermitian(full), "[offline] imag not Hermitian")
+    for k in (0, nfine // 2 - 1, nfine - 1):
+        check(np.array_equal(early[k].astype(np.complex128),
+                             host_vis(packed, k, 2 * 720)),
+              f"[offline] imag early integration, channel {k}")
+    check(np.array_equal(early.astype(np.complex128) + tail, full),
+          "[offline] imag early + tail != whole")
+    print(f"[offline] upchan-imag, nup 2, {nfine} fine channels: equal to "
+          f"the float64 truth on {len(IMAG_CHANNELS)} channels, Hermitian "
+          f"on all; 720 + 480 frames sum exactly to the 1200", flush=True)
+    return walls
+
+
+def offline_times(dev, card: str, path: str) -> None:
+    """Device ms a gulp of the three offline functions (CUDA events) and
+    host s a gulp of the replay's read, staging + H2D + unpack and weight
+    recompute."""
+    t0 = time.perf_counter()
+    h, data = TriggerFileSource(path).read()
+    read_s = time.perf_counter() - t0
+    packed = data.reshape(h["ntime"], h["nchan"], h["nstand"], h["npol"])
+    ngulp = h["ntime"] // OFFLINE_GULP
+    stage = offline._stage((OFFLINE_GULP,) + packed.shape[1:], dev)
+    h2d = []
+    for g in range(ngulp):
+        t0 = time.perf_counter()
+        gulp = offline._gulp_to_device(
+            packed[g * OFFLINE_GULP:(g + 1) * OFFLINE_GULP], dev, stage)
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+    chan_bw = h["bw_hz"] / h["nchan"]
+    nbeam = len(OFFLINE_RA.split(","))
+    cfg = offline.OfflineBeamConfig(
+        nbeam=nbeam, ra_deg=[0.0] * nbeam, dec_deg=[37.0] * nbeam,
+        enz_positions=np.random.RandomState(0).standard_normal(
+            [h["nstand"], 3]) * 100)
+    freqs = fine_freqs(h)
+    t0 = time.perf_counter()
+    w = torch.from_numpy(offline.compute_offline_weights(
+        cfg, freqs, SYNC_TIME)).to(dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    print(f"[{card}] offline replay host time a gulp of {OFFLINE_GULP} "
+          f"spectra: file read {read_s / ngulp:.4f} s, pinned staging + "
+          f"H2D + unpack {min(h2d):.4f}-{max(h2d):.4f} s, weight recompute "
+          f"({nbeam} beams x {len(freqs)} fine channels x {h['nstand'] * 2} "
+          f"inputs) {weights_s:.4f} s", flush=True)
+    ni = h["nstand"] * h["npol"]
+    c8 = 8  # bytes of a complex64
+    fine = offline.upchannelize_gulp(gulp, 32)
+    up_ms = cuda_ms(lambda: offline.upchannelize_gulp(gulp, 32), 10)
+    up_b = bound(2 * gulp.numel() * c8, 5 * gulp.numel() * math.log2(32),
+                 "fp32")
+    bf_ms = cuda_ms(lambda: offline.apply_weights_and_sum(fine, w), 10)
+    T, F = fine.shape[0], fine.shape[1] * fine.shape[2]
+    bf_b = bound((fine.numel() + w.numel() + T * nbeam * F) * c8,
+                 8 * T * nbeam * F * ni, "fp32")
+    del fine
+    sel = offline.upchan_select_gulp(gulp, 2, 0, 2 * h["nchan"])
+    acc = offline.correlate_offline(sel)
+    co_ms = cuda_ms(lambda: offline.correlate_offline(sel, acc), 5)
+    T, C = sel.shape[0], sel.shape[1]
+    co_b = bound((sel.numel() + 2 * acc.numel()) * c8,
+                 8 * C * ni * ni * T, "fp32")
+    for name, ms, b, what in (
+            ("upchannelize_gulp", up_ms, up_b, "nup 32, FFT of the fine "
+             "axis + fftshift + layout copy"),
+            ("apply_weights_and_sum", bf_ms, bf_b, f"{nbeam} beams, one "
+             f"complex64 bmm over {F} fine channels"),
+            ("correlate_offline", co_ms, co_b, f"nup 2, {C} fine channels "
+             f"x {ni}^2 x {T} frames added in place, "
+             f"{8 * C * ni * ni * T / 1e9:.0f} GFLOP")):
+        print(f"[{card}] offline {name} ({what}): {ms:.3f} ms a gulp; bound "
+              f"{b['bound_ms']:.3f} ms by {b['bound_by']} (FP32 67 TFLOP/s, "
+              f"3.35 TB/s)", flush=True)
+    del sel, acc, gulp, w
+
+
+def rx_process(module: str, argv: list, port: int, outdir: Path):
+    """``python -m`` of a receiver script on 127.0.0.1:``port`` writing
+    into ``outdir``; returns once it holds the port."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"caltech_bifrost_dsp_tpu_torch.scripts."
+         f"{module}", "--ip", "127.0.0.1", "--port", str(port), "--outpath",
+         str(outdir)] + argv, cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + 60
+    while not udp_bound(port):
+        if proc.poll() is not None:
+            raise RuntimeError(f"FAILED: [receivers] {module} exited "
+                               f"{proc.returncode}: {proc.stdout.read()}")
+        check(time.monotonic() < deadline, f"[receivers] {module} never "
+              f"bound port {port}")
+        time.sleep(0.02)
+    return proc
+
+
+def udp_bound(port: int) -> bool:
+    """Whether a socket holds UDP ``port`` (from ``/proc/net/udp``, so
+    that looking never takes the port itself)."""
+    lines = Path("/proc/net/udp").read_text().splitlines()[1:]
+    return any(int(ln.split()[1].rsplit(":", 1)[1], 16) == port
+               for ln in lines)
+
+
+def rx_file(proc, module: str, outdir: Path, timeout_s: float = 180):
+    """Wait for a receiver process; the one file it wrote (meta, raw)."""
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise RuntimeError(f"FAILED: [receivers] {module} timed out: {out}")
+    check(proc.returncode == 0, f"[receivers] {module} exit "
+          f"{proc.returncode}: {out}")
+    files = list(outdir.iterdir())
+    check(len(files) == 1, f"[receivers] {module} wrote {files}")
+    with open(files[0], "rb") as fh:
+        meta = json.loads(fh.readline().decode())
+        raw = fh.read()
+    return files[0].name, meta, raw
+
+
+def run_receivers(dev, card: str, blocks, gains_np, truth, slow,
+                  tmp: Path) -> dict:
+    """One driver run at full width whose subselection, PBEAM and COR
+    streams go over loopback to ``corr_part_rx``, ``beam_rx --capture``
+    and ``corr_rx --cor-fmt``, each ``python -m`` in its own process; every
+    file equal to the driver path's truths, no packet lost.  Returns the
+    launch counts."""
+    cfg = RECORD_CFG
+    nwin = len(blocks)
+    nco = cfg.nchan // cfg.nchan_sum
+    nb2 = cfg.nbeam // 2
+    nseq = nwin * cfg.acc_len // cfg.ntime_sum
+    ports, outs, procs = {}, {}, {}
+    specs = {
+        "corr_part_rx": ["-c", str(nco), "-b", str(cfg.nvis_out),
+                         "--timeout", "180"],
+        "beam_rx": ["--capture", "--nbeam", str(nb2), "--nseq", str(nseq),
+                    "-c", str(cfg.nchan), "--timeout", "180"],
+        "corr_rx": ["--cor-fmt", "-s", str(cfg.nstand), "-c",
+                    str(cfg.nchan)],
+    }
+    for name in specs:
+        ports[name] = free_port()
+        outs[name] = tmp / name
+        outs[name].mkdir()
+    try:
+        CommandBlock.reset_instance_counts()
+        store = MemoryStore()
+        dest = {n: ("127.0.0.1", p) for n, p in ports.items()}
+        pipe = XEnginePipeline(
+            cfg, GoldenSource(cfg, blocks), store=store, sync_time=SYNC_TIME,
+            corr_outputs=[sink.CorrFullOutput(
+                cfg, send=sink.UdpSender(*dest["corr_rx"]),
+                max_mbps=RX_COR_MBPS, use_cor_fmt=True)],
+            subsel_outputs=[sink.CorrPartOutput(
+                cfg, send=sink.UdpSender(*dest["corr_part_rx"]))],
+            pbeam_outputs=[sink.PBeamOutput(cfg, senders={
+                b: sink.UdpSender(*dest["beam_rx"]) for b in range(nb2)})],
+            device=dev.type)
+        load_gains(pipe, store, gains_np)
+        command(store, pipe.subsel_cmd.command_key, "bl",
+                baselines=DRIVER_BASELINES)
+        # the receivers start last: corr_rx waits at most 30 s for its
+        # first packet, which comes with the slow dump
+        for name, argv in specs.items():
+            procs[name] = rx_process(name, argv, ports[name], outs[name])
+        zero_counts()
+        t0 = time.perf_counter()
+        pipe.run(nwin * cfg.acc_len // cfg.ntime_gulp, timeout_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        files = {n: rx_file(procs[n], n, outs[n]) for n in specs}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    check((pipe.ndump_fast, pipe.ndump_slow) == (nwin, 1),
+          f"[receivers] dumps {pipe.ndump_fast} fast, {pipe.ndump_slow} slow")
+    # subselection: the integration after the in-flight one
+    _, meta, raw = files["corr_part_rx"]
+    w = meta["t0"] // cfg.acc_len
+    check(meta["t0"] == cfg.acc_len and meta["acc_len"] == cfg.acc_len,
+          f"[receivers] subsel t0 {meta['t0']}, acc_len {meta['acc_len']}")
+    sub = np.frombuffer(raw, np.complex128).reshape(meta["shape"])
+    check(np.array_equal(np.asarray(meta["baselines"], np.uint32),
+                         np.asarray(DRIVER_BASELINES, np.uint32))
+          and np.array_equal(sub.real.T, truth[w]["sub"][0])
+          and np.array_equal(sub.imag.T, truth[w]["sub"][1]),
+          f"[receivers] corr_part_rx file vs window {w}'s subselection")
+    # power beams: every integration of every beam
+    _, meta, raw = files["beam_rx"]
+    power = np.frombuffer(raw, np.float32).reshape(meta["shape"])
+    want = torch.cat([t["power"] for t in truth], 1).permute(1, 0, 2, 3)
+    check(meta["seqs"] == list(range(0, nseq * cfg.ntime_sum,
+                                     cfg.ntime_sum))
+          and power_close(torch.from_numpy(power.copy()), want),
+          "[receivers] beam_rx file vs the plain beam powers")
+    # COR: the slow dump, Hermitian cube [s0, s1, p0, p1, chan]
+    name, meta, raw = files["corr_rx"]
+    cube = np.frombuffer(raw, np.complex128).reshape(meta["shape"])
+    for k, plane in enumerate(slow):
+        want = plane.reshape(cfg.nchan, cfg.nstand, cfg.npol, cfg.nstand,
+                             cfg.npol).transpose(1, 3, 2, 4, 0)
+        got = cube.imag if k else cube.real
+        check(np.array_equal(got, want), f"[receivers] corr_rx file {name} "
+              "vs the plain slow dump")
+    del cube, raw
+    nbl = cfg.nstand * (cfg.nstand + 1) // 2
+    print(f"[receivers] corr_part_rx (window {w}, {cfg.nvis_out} "
+          f"baselines), beam_rx ({nseq} integrations x {nb2} beams) and "
+          f"corr_rx --cor-fmt ({nbl} packets paced at {RX_COR_MBPS} Mb/s), "
+          f"each a process of its own: files equal to the truths, no packet "
+          f"lost; driver {wall:.3f} s for {nwin} windows and the slow dump",
+          flush=True)
+    print(f"[{card}] receivers: COR slow dump of "
+          f"{nbl * cor_packet_size(cfg) / 1e6:.1f} MB received by a Python "
+          f"recv loop at the {RX_COR_MBPS} Mb/s pace", flush=True)
+    return counts
+
+
+def run_offline_path(dev, card: str, blocks, gains_np, truth, slow) -> dict:
+    """The eighth path, offline replay and reception: a full-width dump
+    replayed by upchan-bf and upchan-imag on the card, the offline
+    functions timed, then the product receivers as processes.  Returns the
+    launch counts (the offline functions launch none of the port's
+    kernels; the receivers' driver run does)."""
+    tmp = record_dir()
+    hdf5 = have_h5py()
+    try:
+        if not hdf5:
+            print("[offline] h5py is not installed: the HDF5 writers are "
+                  "not run; the CLIs' replays run on the card without them "
+                  "and the same gates hold their outputs", flush=True)
+        zero_counts()
+        path = offline_dump(tmp, blocks[0])
+        walls = upchan_bf_phase(dev, path, tmp, hdf5)
+        walls.update(upchan_imag_phase(dev, path, tmp, hdf5))
+        offline_counts = read_counts()
+        sky = LWA352.acc_len / LWA352.spectra_rate_hz
+        print(f"[{card}] offline CLI wall times over the {sky * 1e3:.1f} ms "
+              f"of sky in the dump"
+              + ("" if hdf5 else " (replay without the HDF5 writers)") + ": "
+              + ", ".join(f"{k} {v:.3f} s ({v / sky:.2f}x)"
+                          for k, v in walls.items() if "MB/s" not in k)
+              + "; HDF5 writers " + (", ".join(
+                  f"{k.removesuffix(' HDF5 MB/s')} {v:.1f} MB/s"
+                  for k, v in walls.items() if "MB/s" in k) if hdf5
+                  else "not run (no h5py)"), flush=True)
+        offline_times(dev, card, path)
+        counts = run_receivers(dev, card, blocks, gains_np, truth, slow, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not any(offline_counts.values()),
+          f"[offline] kernels launched by the offline CLIs: {offline_counts}")
+    for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
+        check(counts[name] > 0, f"[receivers] {name} not launched")
+    print(f"[offline] kernel launches: {counts}", flush=True)
+    return counts
+
+
+def timed(walls: dict, name: str, fn, *args):
+    """``fn(*args)``, its wall time into ``walls[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2698,10 +3208,11 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    walls = {"build": time.perf_counter() - t0}
     results = {name: {} for name in KERNELS}
-    phase_kernels(dev, card, results)
-    phase_triu(dev, card, results)
-    phase_pfb_direct(dev, card, results)
+    timed(walls, "kernels", phase_kernels, dev, card, results)
+    timed(walls, "triu", phase_triu, dev, card, results)
+    timed(walls, "pfb_direct", phase_pfb_direct, dev, card, results)
 
     rng = np.random.RandomState(0xBF)
     shape = (LWA352.nchan, LWA352.nbeam, LWA352.ninput)
@@ -2711,36 +3222,49 @@ def main() -> int:
     blocks = golden_windows(DRIVER_CFG, 3)
     zero_counts()
     window_s = []
+    t1 = time.perf_counter()
     run_geometry(dev, DRIVER_CFG, blocks, gains_np, window_s)
     cfg184 = LWA352.replace(nchan=184, acc_len_slow=2400)
     run_geometry(dev, cfg184, golden_windows(cfg184, 1),
                  [g[:184] for g in gains_np], window_s)
+    walls["X/B"] = time.perf_counter() - t1
     xb = read_counts()
     for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
         check(xb[name] > 0, f"kernel {name} not launched by the X/B path")
     print(f"X/B path kernel launches: {xb}", flush=True)
     # path 2, FX: raw ADC through the channelizer
     fx_window_s = []
-    fx, qs = run_fx_path(dev, gains_np, fx_window_s)
+    fx, qs = timed(walls, "FX", run_fx_path, dev, gains_np, fx_window_s)
     # path 3, F-engine: the channelizer alone at 4096 channels
-    fe = run_fengine(dev, card, results)
+    fe = timed(walls, "F-engine", run_fengine, dev, card, results)
     # path 4, the operator entry point's threaded driver
-    dr, truth, slow, ref = run_driver_path(dev, card, blocks, gains_np)
+    dr, truth, slow, ref = timed(walls, "driver", run_driver_path, dev, card,
+                                 blocks, gains_np)
     # path 5, the device mesh: sharded programs and the mesh driver
-    me = run_mesh_path(dev, card, blocks, gains_np, qs, truth, slow, ref)
+    me = timed(walls, "mesh", run_mesh_path, dev, card, blocks, gains_np, qs,
+               truth, slow, ref)
     # path 6, the wire: C++ COR out, native capture in
-    wi = run_wire_path(dev, card, blocks, gains_np, qs, truth, slow, ref)
+    wi = timed(walls, "wire", run_wire_path, dev, card, blocks, gains_np, qs,
+               truth, slow, ref)
     # the correlator schedules without an engine name
-    sc = run_schedules_path(dev, DRIVER_CFG, blocks, slow)
+    sc = timed(walls, "schedules", run_schedules_path, dev, DRIVER_CFG,
+               blocks, slow)
     # path 7, control and record: the transient recorder, the CLI under the
     # host manager, the etcd3 wire
-    rc = run_record_path(dev, card, blocks, gains_np, qs, truth)
+    rc = timed(walls, "record", run_record_path, dev, card, blocks,
+               gains_np, qs, truth)
+    # path 8, offline replay and reception: the upchannelizer CLIs on a
+    # full-width dump, the product receivers as processes
+    of = timed(walls, "offline", run_offline_path, dev, card, blocks,
+               gains_np, truth, slow)
     del blocks, truth, slow
     launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
-                + wi[name] + sc[name] + rc[name] for name in KERNELS}
-    print(f"kernel launches over the seven paths and the schedules run: "
+                + wi[name] + sc[name] + rc[name] + of[name]
+                for name in KERNELS}
+    print(f"kernel launches over the eight paths and the schedules run: "
           f"{launches}", flush=True)
 
+    t1 = time.perf_counter()
     cfg = LWA352
     state = init_state(cfg, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -2787,6 +3311,12 @@ def main() -> int:
     print(f"[{card}] XEngineRunner FX host time per window (ADC into pinned "
           f"memory, H2D, fx_step, products to numpy): "
           + ", ".join(f"{s:.3f} s" for s in fx_window_s), flush=True)
+
+    walls["step times"] = time.perf_counter() - t1
+    print(f"[{card}] wall time by phase: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; {time.perf_counter() - t0:.1f} s from the build on",
+          flush=True)
 
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],

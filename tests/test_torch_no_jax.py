@@ -1,10 +1,12 @@
-"""The port, its CLI, the operator scripts, the FX bench and
-``chip_smoke.py`` import without JAX and without any module of the JAX
-package (and without ``grpc``, which only an etcd store needs), an
-``XEnginePipeline`` runs on the CPU (unsharded and on a 2x2 mesh) in such
-a process, the port's native loader builds and loads its own library and
-leaves the JAX package's ``native/libcbd_native.so`` as it was, and the
-CLI and the bench refuse to run on a host without a card."""
+"""The port, its CLI, the operator scripts, the offline, receiver and
+golden CLIs, the FX bench and ``chip_smoke.py`` import without JAX and
+without any module of the JAX package (and without ``grpc``, which only an
+etcd store needs; the offline CLIs replay without ``h5py``, which only
+their writers need), an ``XEnginePipeline`` runs on the CPU (unsharded and
+on a 2x2 mesh) in such a process, the port's native loader builds and
+loads its own library and leaves the JAX package's
+``native/libcbd_native.so`` as it was, and the CLI and the bench refuse to
+run on a host without a card."""
 
 import os
 import subprocess
@@ -28,27 +30,40 @@ import caltech_bifrost_dsp_tpu_torch.control.manager
 import caltech_bifrost_dsp_tpu_torch.control.monitor
 import caltech_bifrost_dsp_tpu_torch.control.netstore
 import caltech_bifrost_dsp_tpu_torch.control.store
+import caltech_bifrost_dsp_tpu_torch.io.hdf5
 import caltech_bifrost_dsp_tpu_torch.io.native
 import caltech_bifrost_dsp_tpu_torch.io.packets
 import caltech_bifrost_dsp_tpu_torch.io.sink
 import caltech_bifrost_dsp_tpu_torch.io.source
+import caltech_bifrost_dsp_tpu_torch.models.offline
 import caltech_bifrost_dsp_tpu_torch.models.xengine
 import caltech_bifrost_dsp_tpu_torch.ops.corr_blk
 import caltech_bifrost_dsp_tpu_torch.ops.corr_rows
 import caltech_bifrost_dsp_tpu_torch.ops.corr_triu
 import caltech_bifrost_dsp_tpu_torch.ops.pfb
 import caltech_bifrost_dsp_tpu_torch.ops.pfb_fused
+import caltech_bifrost_dsp_tpu_torch.ops.xgpu_order
 import caltech_bifrost_dsp_tpu_torch.parallel.mesh
 import caltech_bifrost_dsp_tpu_torch.runtime.arming
 import caltech_bifrost_dsp_tpu_torch.runtime.driver
 import caltech_bifrost_dsp_tpu_torch.runtime.ring
 import caltech_bifrost_dsp_tpu_torch.runtime.runner
 import caltech_bifrost_dsp_tpu_torch.scripts.arm_correlator
+import caltech_bifrost_dsp_tpu_torch.scripts.beam_rx
 import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
+import caltech_bifrost_dsp_tpu_torch.scripts.check_golden
+import caltech_bifrost_dsp_tpu_torch.scripts.corr_part_rx
+import caltech_bifrost_dsp_tpu_torch.scripts.corr_rx
+import caltech_bifrost_dsp_tpu_torch.scripts.make_golden
 import caltech_bifrost_dsp_tpu_torch.scripts.monitor
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
+import caltech_bifrost_dsp_tpu_torch.scripts.probe_rx
+import caltech_bifrost_dsp_tpu_torch.scripts.snap_rx
+import caltech_bifrost_dsp_tpu_torch.scripts.upchan_bf
+import caltech_bifrost_dsp_tpu_torch.scripts.upchan_imag
 import caltech_bifrost_dsp_tpu_torch.scripts.xeng_manager
 import caltech_bifrost_dsp_tpu_torch.utils.proclog
+import caltech_bifrost_dsp_tpu_torch.utils.skycoords
 import caltech_bifrost_dsp_tpu_torch.utils.timeutils
 import chip_smoke
 from caltech_bifrost_dsp_tpu_torch.config import TINY
@@ -148,6 +163,43 @@ def test_port_imports_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
+
+
+WITHOUT_H5PY = """
+import sys
+sys.modules["h5py"] = None  # as on a host without h5py
+import numpy as np
+from caltech_bifrost_dsp_tpu_torch.config import TINY
+from caltech_bifrost_dsp_tpu_torch.io import sink, source
+from caltech_bifrost_dsp_tpu_torch.runtime.ring import HistoryRing
+from caltech_bifrost_dsp_tpu_torch.scripts import upchan_bf, upchan_imag
+frame = TINY.nchan * TINY.ninput
+ring = HistoryRing(nbyte=96 * frame, frame_nbyte=frame)
+ring.set_header(source.sequence_header(TINY, seq0=0), frame0_seq=0)
+for i in range(96):
+    ring.push(np.full(frame, i, np.uint8))
+path = sink.TriggeredDump(ring, dump_path=sys.argv[1]).trigger(96)[0]
+for cli, argv in ((upchan_bf, ["--nupchan", "8", "--gulp", "48"]),
+                  (upchan_imag, ["--end-freq", "32", "--gulp", "48"])):
+    args = cli.build_parser().parse_args(
+        ["--datain", path, "--device", "cpu"] + argv)
+    replay = cli.Replay(args)
+    try:
+        cli.write(args, replay)
+    except ImportError as e:
+        assert "h5py" in str(e), e
+    else:
+        raise AssertionError("wrote HDF5 without h5py")
+print("no h5py")
+"""
+
+
+def test_offline_clis_replay_without_h5py(tmp_path):
+    """The offline CLIs' replay runs where ``h5py`` is missing (as on the
+    card's host); only their writers need it, and they say so."""
+    proc = _run(["-c", WITHOUT_H5PY, str(tmp_path)])
+    assert proc.returncode == 0, proc.stderr
+    assert "no h5py" in proc.stdout
 
 
 LOAD_NATIVE = """
