@@ -27,6 +27,24 @@ visibility matrix on the first time shard's device of its chan column, the
 gathered VLBI slab on the first chan shard's device of its time row): a
 single controller runs every consumer of such a value once per group.
 
+The shards of one mesh may also live in several processes
+(:mod:`.multihost` builds such a mesh over ``torch.distributed``).  Every
+process then runs the same program on the same global inputs; the mesh
+knows which rank owns each shard, a :class:`Sharded` holds ``None`` for a
+shard of another process, and every per-shard loop visits the local shards
+only.  A collective routes each block by its owners: a block that stays in
+its process is the ``copy_`` above, one that crosses processes goes through
+``torch.distributed`` point to point (gloo takes CPU tensors only, so a CUDA
+block is staged through pinned host buffers kept across calls: the
+sending shard's stream is synchronized after its device-to-host copy, the
+receiver's host-to-device copy runs on the receiving shard's stream).  A
+value held once per group lives in the process that owns the shard it is
+held on: the reduced visibilities, the subselection and the slow planes
+in the owner of shard (0, c), the gathered VLBI rows in the owner of
+(t, 0); the zero halo of time row 0 is built only by that row's owners.
+Gather a product to every process with :func:`.multihost.process_allgather`;
+:func:`unshard` takes only blocks of its own process.
+
 Per-shard kernels follow ``cfg``'s engines: ``corr_engine="pallas_blk"``
 runs the gulp correlator :func:`..ops.corr_blk.corr_blk`,
 ``"pallas_triu"`` :func:`..ops.corr_triu.corr_triu`, ``"xla"`` the plain
@@ -39,9 +57,11 @@ valid, like the unsharded :class:`..models.xengine.XEngineState`.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import XEngineConfig
 from ..ops import beamform as bf
@@ -59,23 +79,52 @@ AXES = ("time", "chan")
 class Mesh:
     """A ``[n_time][n_chan]`` grid of devices, one CUDA stream per shard
     (none for CPU shards).  ``shape`` maps axis name to size, as on a
-    ``jax.sharding.Mesh``."""
+    ``jax.sharding.Mesh``.
+
+    ``owners`` (flat, like ``devices``) gives the rank in the default
+    ``torch.distributed`` group of the process that owns each shard; a
+    shard of another process has ``None`` as its device.  Without
+    ``owners`` every shard is this process's.  ``traffic`` counts, per
+    collective: ``calls``; ``in_process_bytes``, moved between two shards
+    of this process; ``sent_bytes``, sent to other processes; and
+    ``transfer_s``, the seconds spent staging, sending and receiving the
+    blocks that cross processes."""
 
     axis_names = AXES
 
-    def __init__(self, devices, n_time: int, n_chan: int):
-        devices = [torch.device(d) for d in devices]
+    def __init__(self, devices, n_time: int, n_chan: int, owners=None):
         if len(devices) != n_time * n_chan:
             raise ValueError(f"{len(devices)} devices for a {n_time}x"
                              f"{n_chan} mesh")
-        for d in devices:
-            if d.type not in ("cpu", "cuda"):
+        if owners is None:
+            self.rank, self.nproc = 0, 1
+            owners = [0] * len(devices)
+        else:
+            self.rank, self.nproc = dist.get_rank(), dist.get_world_size()
+            owners = list(owners)
+            if len(owners) != len(devices):
+                raise ValueError(f"{len(owners)} owners for "
+                                 f"{len(devices)} shards")
+        local = []
+        for d, rank in zip(devices, owners):
+            d = None if d is None else torch.device(d)
+            if (d is None) != (rank != self.rank):
+                raise ValueError("a device is named for exactly the "
+                                 "shards of this process")
+            if d is not None and d.type not in ("cpu", "cuda"):
                 raise ValueError(f"no kernel or plain version for {d}")
-        self.devices = [devices[t * n_chan:(t + 1) * n_chan]
+            local.append(d)
+        self.devices = [local[t * n_chan:(t + 1) * n_chan]
                         for t in range(n_time)]
+        self.owners = [owners[t * n_chan:(t + 1) * n_chan]
+                       for t in range(n_time)]
         self.shape = {"time": n_time, "chan": n_chan}
-        self.streams = [[torch.cuda.Stream(d) if d.type == "cuda" else None
+        self.streams = [[torch.cuda.Stream(d)
+                         if d is not None and d.type == "cuda" else None
                          for d in row] for row in self.devices]
+        self.traffic: dict = {}
+        self._staging: dict = {}
+        self._calls = 0
 
     @property
     def n_time(self) -> int:
@@ -88,6 +137,13 @@ class Mesh:
     def coords(self):
         return [(t, c) for t in range(self.n_time)
                 for c in range(self.n_chan)]
+
+    def is_local(self, t: int, c: int) -> bool:
+        return self.owners[t][c] == self.rank
+
+    def local_coords(self):
+        """The shards this process runs."""
+        return [tc for tc in self.coords() if self.is_local(*tc)]
 
     @contextlib.contextmanager
     def on(self, t: int, c: int):
@@ -104,7 +160,7 @@ class Mesh:
         seen = []
         for row in self.devices:
             for d in row:
-                if d.type == "cuda" and d not in seen:
+                if d is not None and d.type == "cuda" and d not in seen:
                     seen.append(d)
         return seen
 
@@ -149,6 +205,105 @@ class Mesh:
         if stream is not None and x.is_cuda:
             x.record_stream(stream)
         return x.to(self.devices[dst[0]][dst[1]])
+
+    def exchange(self, name: str, moves) -> dict:
+        """Carry blocks between shards for the collective ``name``.
+
+        ``moves`` lists ``(src, dst, x, like)``: ``x`` is the block where
+        shard ``src`` is this process's (else None), ``like`` a tensor of
+        the block's shape and dtype where ``dst`` is (else None).  Returns
+        ``{(src, dst): block}`` for every move whose ``dst`` is this
+        process's, ready for use on ``dst``'s stream.  A move within the
+        process is :meth:`wait` and :meth:`fetch`; the moves that cross
+        processes are all posted before any is waited for, so every
+        process, running the same collectives in the same order, pairs its
+        sends with the others' receives."""
+        tally = self.traffic.setdefault(name, {
+            "calls": 0, "in_process_bytes": 0, "sent_bytes": 0,
+            "transfer_s": 0.0})
+        tally["calls"] += 1
+        got, posted = {}, []
+        if self.nproc > 1:
+            self._calls += 1
+            t0 = time.perf_counter()
+            for src, dst, x, like in moves:
+                here, there = self.is_local(*src), self.is_local(*dst)
+                if here and not there:
+                    buf = self._stage_out(src, dst, x)
+                    posted.append((dist.isend(
+                        buf, self.owners[dst[0]][dst[1]],
+                        tag=self._tag(src, dst)), None))
+                    tally["sent_bytes"] += buf.numel() * buf.element_size()
+                elif there and not here:
+                    entry = self._buffer(("in", src, dst), like)
+                    posted.append((dist.irecv(
+                        entry[0], self.owners[src[0]][src[1]],
+                        tag=self._tag(src, dst)), (src, dst, entry)))
+            for work, _ in posted:
+                work.wait()
+            tally["transfer_s"] += time.perf_counter() - t0
+        for work, recv in posted:
+            if recv is not None:
+                src, dst, entry = recv
+                got[src, dst] = self._stage_in(dst, entry)
+        for src, dst, x, _ in moves:
+            if self.is_local(*src) and self.is_local(*dst):
+                if src != dst:
+                    tally["in_process_bytes"] += x.numel() * \
+                        x.element_size()
+                self.wait(dst, [src])
+                with self.on(*dst):
+                    got[src, dst] = self.fetch(x, dst)
+        return got
+
+    def _tag(self, src, dst) -> int:
+        n = self.n_time * self.n_chan
+        s = src[0] * self.n_chan + src[1]
+        d = dst[0] * self.n_chan + dst[1]
+        return ((self._calls % 4096) * n + s) * n + d
+
+    def _buffer(self, key, like: torch.Tensor) -> list:
+        """``[buffer, event]``: a host buffer of ``like``'s shape and dtype
+        for one route of blocks, pinned where ``like`` is on a CUDA device
+        and then kept for the next call; returned once the copy that last
+        read it (its event) has finished."""
+        if not like.is_cuda:
+            return [torch.empty(like.shape, dtype=like.dtype), None]
+        key = key + (tuple(like.shape), like.dtype)
+        if key not in self._staging:
+            self._staging[key] = [torch.empty(like.shape, dtype=like.dtype,
+                                              pin_memory=True), None]
+        entry = self._staging[key]
+        if entry[1] is not None:
+            entry[1].synchronize()
+            entry[1] = None
+        return entry
+
+    def _stage_out(self, src, dst, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in host memory for a send: a CUDA block is copied on
+        ``src``'s stream (after the work that made it) and that copy is
+        waited for, so no send reads stale bytes."""
+        if not x.is_cuda:
+            return x.contiguous()
+        buf = self._buffer(("out", src, dst), x)[0]
+        with self.on(*src):
+            buf.copy_(x, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        copied.synchronize()
+        return buf
+
+    def _stage_in(self, dst, entry: list) -> torch.Tensor:
+        """A received block on ``dst``'s device, copied on its stream; the
+        pinned buffer is free again once that copy is done."""
+        buf, device = entry[0], self.devices[dst[0]][dst[1]]
+        if device.type != "cuda":
+            return buf
+        with self.on(*dst):
+            out = buf.to(device, non_blocking=True)
+            entry[1] = torch.cuda.Event()
+            entry[1].record()
+        return out
 
 
 def make_mesh(n_time: int = 1, n_chan: int | None = None,
@@ -195,7 +350,8 @@ class Sharded:
 
     @property
     def shape(self) -> tuple:
-        local = self.shards[0][0].shape
+        local = next(x for row in self.shards for x in row
+                     if x is not None).shape
         return tuple(n * (self.mesh.shape[a] if a else 1)
                      for n, a in zip(local, self.spec))
 
@@ -218,12 +374,21 @@ def _index(mesh: Mesh, spec, shape, t: int, c: int) -> tuple:
     return tuple(idx)
 
 
+def held_at(spec, t: int, c: int) -> tuple:
+    """The shard whose entry holds block (t, c) of a value laid out by
+    ``spec``: a value replicated over an axis is held at index 0 of it."""
+    return (t if "time" in spec else 0, c if "chan" in spec else 0)
+
+
 def shard(mesh: Mesh, x: torch.Tensor, spec) -> Sharded:
     """Lay ``x`` out over ``mesh`` by ``spec`` (one entry per axis of
     ``x``: "time", "chan" or None).  A shard on ``x``'s device is a view
-    of ``x``; a shard elsewhere is a copy made on the current streams."""
+    of ``x``; a shard elsewhere is a copy made on the current streams.
+    Only this process's shards are made: every process passes the same
+    global ``x``."""
     spec = tuple(spec) + (None,) * (x.dim() - len(spec))
     grid = [[x[_index(mesh, spec, x.shape, t, c)].to(mesh.devices[t][c])
+             if mesh.is_local(t, c) else None
              for c in range(mesh.n_chan)] for t in range(mesh.n_time)]
     return Sharded(mesh, spec, grid)
 
@@ -231,22 +396,31 @@ def shard(mesh: Mesh, x: torch.Tensor, spec) -> Sharded:
 def unshard(sx: Sharded, device=None) -> torch.Tensor:
     """The global tensor of ``sx`` on ``device`` (default: the device of
     shard (0, 0)), assembled on the current stream.  Call it outside the
-    sharded programs, which join their streams before they return."""
+    sharded programs, which join their streams before they return.  Every
+    block must be this process's (across processes:
+    :func:`.multihost.process_allgather`)."""
     mesh = sx.mesh
+    blocks = {held_at(sx.spec, t, c) for t, c in mesh.coords()}
+    away = sorted(tc for tc in blocks if not mesh.is_local(*tc))
+    if away:
+        raise ValueError(f"shards {away} lie in other processes; gather "
+                         "them with multihost.process_allgather")
     device = torch.device(device) if device is not None \
         else sx.shards[0][0].device
     first = sx.shards[0][0]
     if all(a is None for a in sx.spec):
         return first.to(device)
     out = torch.empty(sx.shape, dtype=first.dtype, device=device)
-    for t, c in mesh.coords():
-        if ("time" not in sx.spec and t) or ("chan" not in sx.spec and c):
-            continue
+    for t, c in sorted(blocks):
         out[_index(mesh, sx.spec, out.shape, t, c)].copy_(sx.shards[t][c])
     return out
 
 
 # -- collectives -------------------------------------------------------------
+#
+# Every process calls every collective, in the same order, with its grid of
+# blocks (``None`` where the shard is another process's); each returns
+# ``None`` where the result's shard is another process's.
 
 def psum(mesh: Mesh, parts, axis: str = "time") -> list:
     """Sum ``parts[t][c]`` over 'time'.  Returns one tensor per chan
@@ -255,16 +429,20 @@ def psum(mesh: Mesh, parts, axis: str = "time") -> list:
     itself is returned."""
     if axis != "time":
         raise ValueError("psum reduces over 'time'")
+    if mesh.n_time == 1:
+        return [parts[0][c] for c in range(mesh.n_chan)]
+    got = mesh.exchange("psum", [
+        ((t, c), (0, c), parts[t][c], parts[0][c])
+        for c in range(mesh.n_chan) for t in range(1, mesh.n_time)])
     out = []
     for c in range(mesh.n_chan):
-        if mesh.n_time == 1:
-            out.append(parts[0][c])
+        if not mesh.is_local(0, c):
+            out.append(None)
             continue
-        mesh.wait((0, c), [(t, c) for t in range(1, mesh.n_time)])
         with mesh.on(0, c):
             acc = parts[0][c].clone()
             for t in range(1, mesh.n_time):
-                acc.add_(mesh.fetch(parts[t][c], (0, c)))
+                acc.add_(got[(t, c), (0, c)])
         out.append(acc)
     return out
 
@@ -280,37 +458,37 @@ def all_to_all(mesh: Mesh, x, split_axis: int, concat_axis: int,
     n = mesh.n_chan
     if n == 1:
         return x
+
+    def block(t, k, c):
+        src = x[t][k]
+        if src is None:
+            return None
+        w = src.shape[split_axis] // n
+        return src.narrow(split_axis, c * w, w)
+
+    got = mesh.exchange("all_to_all", [
+        ((t, k), (t, c), block(t, k, c), block(t, c, c))
+        for t in range(mesh.n_time) for c in range(n) for k in range(n)])
     out = [[None] * n for _ in range(mesh.n_time)]
-    for t in range(mesh.n_time):
-        row = [(t, k) for k in range(n)]
-        for c in range(n):
-            mesh.wait((t, c), row)
-            with mesh.on(t, c):
-                blocks = []
-                for k in range(n):
-                    src = x[t][k]
-                    w = src.shape[split_axis] // n
-                    blocks.append(mesh.fetch(
-                        src.narrow(split_axis, c * w, w), (t, c)))
-                shape = list(blocks[0].shape)
-                shape[concat_axis] = sum(b.shape[concat_axis]
-                                         for b in blocks)
-                if memory_order is None:
-                    buf = torch.empty(shape, dtype=blocks[0].dtype,
-                                      device=blocks[0].device)
-                else:
-                    buf = torch.empty([shape[a] for a in memory_order],
-                                      dtype=blocks[0].dtype,
-                                      device=blocks[0].device)
-                    inverse = [memory_order.index(a)
-                               for a in range(len(shape))]
-                    buf = buf.permute(inverse)
-                at = 0
-                for b in blocks:
-                    buf.narrow(concat_axis, at, b.shape[concat_axis]) \
-                        .copy_(b)
-                    at += b.shape[concat_axis]
-                out[t][c] = buf
+    for t, c in mesh.local_coords():
+        with mesh.on(t, c):
+            blocks = [got[(t, k), (t, c)] for k in range(n)]
+            shape = list(blocks[0].shape)
+            shape[concat_axis] = sum(b.shape[concat_axis] for b in blocks)
+            if memory_order is None:
+                buf = torch.empty(shape, dtype=blocks[0].dtype,
+                                  device=blocks[0].device)
+            else:
+                buf = torch.empty([shape[a] for a in memory_order],
+                                  dtype=blocks[0].dtype,
+                                  device=blocks[0].device)
+                inverse = [memory_order.index(a) for a in range(len(shape))]
+                buf = buf.permute(inverse)
+            at = 0
+            for b in blocks:
+                buf.narrow(concat_axis, at, b.shape[concat_axis]).copy_(b)
+                at += b.shape[concat_axis]
+            out[t][c] = buf
     return out
 
 
@@ -318,17 +496,12 @@ def ppermute_halo(mesh: Mesh, tails, first):
     """Ring shift by one over 'time': shard (t, c) receives shard
     (t - 1, c)'s ``tails`` entry; shard (0, c) takes ``first[c]`` (zeros,
     or the carry of the previous block) in place of the wrap-around."""
-    out = []
-    for t in range(mesh.n_time):
-        row = []
-        for c in range(mesh.n_chan):
-            if t == 0:
-                row.append(first[c])
-                continue
-            mesh.wait((t, c), [(t - 1, c)])
-            with mesh.on(t, c):
-                row.append(mesh.fetch(tails[t - 1][c], (t, c)))
-        out.append(row)
+    got = mesh.exchange("ppermute_halo", [
+        ((t - 1, c), (t, c), tails[t - 1][c], tails[t][c])
+        for t in range(1, mesh.n_time) for c in range(mesh.n_chan)])
+    out = _grid(mesh)
+    for t, c in mesh.local_coords():
+        out[t][c] = first[c] if t == 0 else got[(t - 1, c), (t, c)]
     return out
 
 
@@ -336,14 +509,18 @@ def all_gather(mesh: Mesh, x, axis: int) -> list:
     """Tiled all-gather over 'chan' along tensor ``axis``.  Returns one
     tensor per time row, on the row's first device (made on shard
     (t, 0)'s stream).  One chan shard: the shard itself."""
+    if mesh.n_chan == 1:
+        return [x[t][0] for t in range(mesh.n_time)]
+    got = mesh.exchange("all_gather", [
+        ((t, c), (t, 0), x[t][c], x[t][0])
+        for t in range(mesh.n_time) for c in range(mesh.n_chan)])
     out = []
     for t in range(mesh.n_time):
-        if mesh.n_chan == 1:
-            out.append(x[t][0])
+        if not mesh.is_local(t, 0):
+            out.append(None)
             continue
-        mesh.wait((t, 0), [(t, c) for c in range(1, mesh.n_chan)])
         with mesh.on(t, 0):
-            out.append(torch.cat([mesh.fetch(x[t][c], (t, 0))
+            out.append(torch.cat([got[(t, c), (t, 0)]
                                   for c in range(mesh.n_chan)], dim=axis))
     return out
 
@@ -418,8 +595,10 @@ def _shard_gains(mesh: Mesh, gains: bf.BeamGains):
     """Gains chan-sharded; contiguous per shard (the kernel's contract;
     a slice of whole channels of a contiguous plane already is)."""
     planes = [shard(mesh, g, VIS_SPEC) for g in gains]
-    return [[bf.BeamGains(*(p[t, c].contiguous() for p in planes))
-             for c in range(mesh.n_chan)] for t in range(mesh.n_time)]
+    g = _grid(mesh)
+    for t, c in mesh.local_coords():
+        g[t][c] = bf.BeamGains(*(p[t, c].contiguous() for p in planes))
+    return g
 
 
 def _replicate(mesh: Mesh, x: torch.Tensor):
@@ -429,29 +608,32 @@ def _replicate(mesh: Mesh, x: torch.Tensor):
 def _dump(cfg, mesh, parts_r, parts_i, pairs, want_subsel):
     """The once-per-window tail: psum over 'time', Hermitian mirror,
     subselection, each once per chan column.  Returns per column the
-    dense Vis and the subselection (or None)."""
+    dense Vis and the subselection (None where the column's shard (0, c)
+    is another process's; the list None without ``want_subsel``)."""
     sum_r = psum(mesh, parts_r)
     sum_i = psum(mesh, parts_i)
-    dense, subsel = [], []
+    dense, subsel = [None] * mesh.n_chan, [None] * mesh.n_chan
     for c in range(mesh.n_chan):
+        if not mesh.is_local(0, c):
+            continue
         with mesh.on(0, c):
-            vis = corr.mirror_vis(Vis(sum_r[c], sum_i[c]))
-            dense.append(vis)
-            subsel.append(_subsel_shard(cfg, vis, pairs[0][c])
-                          if want_subsel else None)
-    return dense, subsel
+            dense[c] = corr.mirror_vis(Vis(sum_r[c], sum_i[c]))
+            if want_subsel:
+                subsel[c] = _subsel_shard(cfg, dense[c], pairs[0][c])
+    return dense, (subsel if want_subsel else None)
 
 
 def _pack_outputs(mesh, dense, subsel, power, vlbi_rows):
     vis = sub = None
     if dense is not None:
-        vis = Vis(*(_replicated_over_time(mesh, VIS_SPEC,
-                                          [d[k] for d in dense])
-                    for k in range(2)))
-        if subsel[0] is not None:
-            sub = Vis(*(_replicated_over_time(mesh, SUBSEL_SPEC,
-                                              [s[k] for s in subsel])
-                        for k in range(2)))
+        vis = Vis(*(_replicated_over_time(
+            mesh, VIS_SPEC, [None if d is None else d[k] for d in dense])
+            for k in range(2)))
+        if subsel is not None:
+            sub = Vis(*(_replicated_over_time(
+                mesh, SUBSEL_SPEC,
+                [None if x is None else x[k] for x in subsel])
+                for k in range(2)))
     p = Sharded(mesh, POWER_SPEC, power) if power is not None else None
     v = (_replicated_over_chan(mesh, VLBI_SPEC, vlbi_rows)
          if vlbi_rows is not None else None)
@@ -475,7 +657,7 @@ def xengine_sharded_fn(cfg: XEngineConfig, mesh: Mesh):
         prs = _replicate(mesh, pairs)
         mesh.fork()
         pr, pi, power = _grid(mesh), _grid(mesh), _grid(mesh)
-        for t, c in mesh.coords():
+        for t, c in mesh.local_coords():
             with mesh.on(t, c):
                 pr[t][c], pi[t][c] = _corr_gulp(cfg, pk[t, c])
                 power[t][c], _ = _beam_products_shard(cfg, pk[t, c],
@@ -497,6 +679,8 @@ def zero_sharded_state(cfg: XEngineConfig, mesh: Mesh):
     ncl = cfg.nchan // mesh.n_chan
 
     def zeros(t, c, lead):
+        if not mesh.is_local(t, c):
+            return None
         return torch.zeros(lead + (ncl, cfg.ninput, cfg.ninput),
                            dtype=torch.int32, device=mesh.devices[t][c])
 
@@ -527,7 +711,7 @@ def _state_xb_tail(cfg, mesh, state, pk, g, prs, fast_first, fast_last,
     (fr, fi), (sr, si) = state
     power = _grid(mesh) if want_power else None
     vlbi = _grid(mesh) if want_vlbi else None
-    for t, c in mesh.coords():
+    for t, c in mesh.local_coords():
         with mesh.on(t, c):
             part = _corr_gulp(cfg, pk[t][c])
             for acc, new in ((fr[t, c][0], part.real),
@@ -545,12 +729,13 @@ def _state_xb_tail(cfg, mesh, state, pk, g, prs, fast_first, fast_last,
                     vlbi[t][c] = v
     dense = subsel = None
     if fast_last:
-        dense, subsel = _dump(
-            cfg, mesh, [[fr[t, c][0] for c in range(mesh.n_chan)]
-                        for t in range(mesh.n_time)],
-            [[fi[t, c][0] for c in range(mesh.n_chan)]
-             for t in range(mesh.n_time)], prs, want_subsel)
+        parts = [[[None if p[t, c] is None else p[t, c][0]
+                   for c in range(mesh.n_chan)] for t in range(mesh.n_time)]
+                 for p in (fr, fi)]
+        dense, subsel = _dump(cfg, mesh, *parts, prs, want_subsel)
         for c in range(mesh.n_chan):
+            if not mesh.is_local(0, c):
+                continue
             with mesh.on(0, c):
                 for acc, new in ((sr[0, c], dense[c].real),
                                  (si[0, c], dense[c].imag)):
@@ -610,7 +795,7 @@ def _channelize_turn(cfg, mesh, adc_sh, first, window, quant_scale):
     ext = _grid(mesh)
     if halo_n:
         tails = _grid(mesh)
-        for t, c in mesh.coords():
+        for t, c in mesh.local_coords():
             with mesh.on(t, c):
                 tails[t][c] = adc_sh[t][c][-halo_n:]
         halo = ppermute_halo(mesh, tails, first)
@@ -618,7 +803,7 @@ def _channelize_turn(cfg, mesh, adc_sh, first, window, quant_scale):
     scale = (_replicate(mesh, quant_scale)
              if isinstance(quant_scale, torch.Tensor) else None)
     pk = _grid(mesh)
-    for t, c in mesh.coords():
+    for t, c in mesh.local_coords():
         with mesh.on(t, c):
             ext[t][c] = (torch.cat([halo[t][c], adc_sh[t][c]])
                          if halo_n else adc_sh[t][c])
@@ -629,7 +814,7 @@ def _channelize_turn(cfg, mesh, adc_sh, first, window, quant_scale):
     # inputs on axis 0; the result is laid out [t, c, input] in memory
     pk = all_to_all(mesh, pk, split_axis=2, concat_axis=0,
                     memory_order=(1, 2, 0))
-    for t, c in mesh.coords():
+    for t, c in mesh.local_coords():
         with mesh.on(t, c):
             pk[t][c] = pk[t][c].permute(1, 2, 0).contiguous()
     return pk
@@ -665,16 +850,18 @@ def fx_sharded_fn(cfg: XEngineConfig, mesh: Mesh):
         g = _shard_gains(mesh, gains)
         prs = _replicate(mesh, pairs)
         mesh.fork()
-        first = []
+        first = [None] * mesh.n_chan
         for c in range(mesh.n_chan):
+            if not mesh.is_local(0, c):
+                continue
             with mesh.on(0, c):
-                first.append(torch.zeros(
+                first[c] = torch.zeros(
                     (halo_n, adc_sh[0, c].shape[1]), dtype=adc.dtype,
-                    device=mesh.devices[0][c]))
+                    device=mesh.devices[0][c])
         pk = _channelize_turn(cfg, mesh, adc_sh.shards, first, window,
                               quant_scale)
         pr, pi, power = _grid(mesh), _grid(mesh), _grid(mesh)
-        for t, c in mesh.coords():
+        for t, c in mesh.local_coords():
             with mesh.on(t, c):
                 pr[t][c], pi[t][c] = _corr_gulp(cfg, pk[t][c])
                 power[t][c], _ = _beam_products_shard(cfg, pk[t][c],

@@ -419,6 +419,9 @@ class XEnginePipeline:
         self.device = torch.device(device)
         self.mesh = mesh
         if mesh is not None:
+            if mesh.nproc > 1:
+                raise ValueError("the driver runs a mesh of one process; "
+                                 f"this one spans {mesh.nproc}")
             first = mesh.devices[0][0]
             if first.type != self.device.type:
                 raise ValueError(f"device {device} but the mesh lies on "

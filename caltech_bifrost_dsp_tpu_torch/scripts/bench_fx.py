@@ -82,14 +82,24 @@ def bench_fengine(args, dev) -> dict:
             "nspec": args.nspec}
 
 
+def fx_config(args):
+    """The FX configuration the flags name (the JAX script's); raises
+    ``ValueError`` where ``config.XEngineConfig`` refuses it."""
+    return LWA352.replace(pfb_fft_impl=args.fft_impl,
+                          pfb_precision=args.pfb_precision,
+                          pfb_engine=args.pfb_engine,
+                          adc_dtype=args.adc_dtype,
+                          corr_engine=args.corr_engine,
+                          bf_engine=args.bf_engine)
+
+
 def bench_fx(args, dev) -> dict:
     """The FX step on one window at the LWA-352 width; the real-time bar
     per input is fs / npipeline ADC samples/s."""
     from ..models import xengine
     from ..ops.pfb import pfb_window
 
-    cfg = LWA352.replace(pfb_precision=args.pfb_precision,
-                         adc_dtype=args.adc_dtype)
+    cfg = fx_config(args)
     state, _, gains, pairs = xengine.default_inputs(cfg, device=dev)
     adc = torch.from_numpy(_gen_adc(
         (args.nspec + cfg.pfb_ntap - 1) * 2 * cfg.nchan, cfg.ninput,
@@ -114,16 +124,37 @@ def main(argv=None) -> int:
     p.add_argument("--nspec", type=int, default=2400,
                    help="spectra per call (one fast accumulation)")
     p.add_argument("--niter", type=int, default=10)
+    p.add_argument("--fft-impl", type=str, default="matmul",
+                   choices=["fft", "matmul"],
+                   help="accepted for the JAX script's sake: both compute "
+                        "the same transform through the one channelizer")
     p.add_argument("--pfb-precision", type=str, default="high",
                    choices=["high", "bf16"])
+    p.add_argument("--pfb-engine", type=str, default="xla",
+                   choices=["xla", "pallas"],
+                   help="channelizer engine name (both run the channelizer "
+                        "kernel); 'pallas' requires --fft-impl matmul")
     p.add_argument("--adc-dtype", type=str, default="float32",
                    choices=["float32", "int8"])
+    p.add_argument("--corr-engine", type=str, default="xla",
+                   choices=["xla", "pallas_triu", "pallas_blk"],
+                   help="correlator engine: pallas_triu runs the gulp "
+                        "correlator plus in-place adds, the others the "
+                        "correlator with the algebra fused in")
+    p.add_argument("--bf-engine", type=str, default="xla",
+                   choices=["xla", "pallas"],
+                   help="beamformer engine name (both run the fused "
+                        "beamformer kernel)")
     p.add_argument("--fengine", action="store_true",
                    help="time the channelizer alone at the F-engine "
                         "operating point (4096 channels x 704 inputs)")
     p.add_argument("--nchan", type=int, default=4096,
                    help="F-engine channel count (with --fengine)")
     args = p.parse_args(argv)
+    try:
+        fx_config(args)
+    except ValueError as e:
+        p.error(str(e))
     if not torch.cuda.is_available():
         print("bench_fx: no CUDA device", file=sys.stderr)
         return 1

@@ -164,6 +164,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["matmul", "fft"],
                    help="accepted for the JAX CLI's sake: both compute "
                         "the same transform through the one channelizer")
+    p.add_argument("--pfb-engine", type=str, default="xla",
+                   choices=["xla", "pallas"],
+                   help="channelizer engine name (both run the channelizer "
+                        "kernel); 'pallas' requires --pfb-impl matmul, as "
+                        "in the JAX CLI")
     p.add_argument("--corr-engine", type=str, default="auto",
                    choices=["auto", "xla", "pallas_triu", "pallas_blk"],
                    help="correlator engine: pallas_triu runs the gulp "
@@ -243,10 +248,15 @@ class SlowDumpKeeper:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit 2 on a combination of flags that cannot run."""
+    """Exit 2 on a combination of flags that cannot run, or that the
+    configuration refuses."""
     if args.fx and (args.testdatain or args.testdatacorr):
         parser.error("--fx takes raw ADC samples; the golden test vectors "
                      "are packed post-F input")
+    try:
+        build_config(args)
+    except ValueError as e:
+        parser.error(str(e))
 
 
 def build_mesh(parser: argparse.ArgumentParser, args):
@@ -268,18 +278,25 @@ def build_mesh(parser: argparse.ArgumentParser, args):
     return make_mesh(n_time, n_chan)
 
 
-def build_pipeline(args, mesh=None
-                   ) -> tuple[XEnginePipeline, SlowDumpKeeper | None]:
+def build_config(args) -> XEngineConfig:
+    """The configuration the flags name; raises ``ValueError`` where it
+    refuses them (``config.XEngineConfig``'s validation)."""
     engines = dict(TPU_ENGINES)
     for key in ("corr_engine", "bf_engine", "subsel_engine"):
         if getattr(args, key) != "auto":
             engines[key] = getattr(args, key)
-    cfg = XEngineConfig(
+    return XEngineConfig(
         nstand=args.nstand, nchan=args.nchan, nbeam=args.nbeam,
         ntime_gulp=args.ntime_gulp, acc_len=args.acc_len,
         acc_len_slow=args.acc_len_slow, pipeline_id=args.pipelineid,
-        pfb_fft_impl=args.pfb_impl, pfb_precision=args.pfb_precision,
-        adc_dtype=args.adc_dtype, **engines)
+        pfb_fft_impl=args.pfb_impl, pfb_engine=args.pfb_engine,
+        pfb_precision=args.pfb_precision, adc_dtype=args.adc_dtype,
+        **engines)
+
+
+def build_pipeline(args, mesh=None
+                   ) -> tuple[XEnginePipeline, SlowDumpKeeper | None]:
+    cfg = build_config(args)
     CommandBlock.set_id(args.pipelineid)
     store = connect(args.etcdhost)
     if args.fx and not args.fakesource:

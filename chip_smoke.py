@@ -10,7 +10,7 @@ also at a ragged shape, and the two that unpack their own tiles,
 ``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
 after the compiler's report of their registers and spills; the gather
 also timed alone, as a CUDA graph of bare launches, beside its wrapper),
-then drives eight paths of the port, each with the kernel launch counts
+then drives nine paths of the port, each with the kernel launch counts
 set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
@@ -42,15 +42,18 @@ set to 0 just before it and read just after:
   unsharded step's and beam products within rtol 1e-4; then
   ``XEnginePipeline(mesh=2x2)`` over the driver path's windows with every
   sink, its packets byte for byte those of the unsharded driver run;
-- wire: the driver again with its COR slow dump through the C++ packetizer
-  of ``io/native.py`` (``CorrFullOutput(native_dest=...)``, rate cap
-  picked by sending the plain slow dump alone first) to a receiver in a
-  process of its own, then fed by ``native.CaptureSource`` from a snap2
+- wire: the driver's C++ COR sink (``CorrFullOutput(native_dest=...)``,
+  the packetizer of ``io/native.py``) on the plain slow dump alone, to a
+  receiver in a process of its own (the rate cap the first at which every
+  packet arrives), its packets byte for byte the Python encoder's in the
+  driver run; then the driver fed by ``native.CaptureSource`` from a snap2
   blaster in another process (the same golden windows over loopback, paced
-  by ``delay_ns``, 0 packets missing), each fast dump equal to the plain
-  correlator's and every sink's packets byte for byte those of the
-  Python-encoder run; last, one int8 FX window over ``AdcCaptureSource``,
-  its packets those of the same samples fed in process.
+  by ``delay_ns``, 0 packets missing; its COR slow dump through the C++
+  packetizer at that cap), each fast dump equal to the plain correlator's
+  and every sink's packets byte for byte those of the golden-source run;
+  last, one int8 FX window over ``AdcCaptureSource``, its packets those of
+  the same samples fed in process.  The COR receiver hands its packets
+  back through shared memory.
 
 A run then drives the two correlator schedules that no engine name
 selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
@@ -92,6 +95,20 @@ bounds; then one driver run whose subselection, PBEAM and COR streams
 (paced at ``RX_COR_MBPS``) go to ``corr_part_rx``, ``beam_rx --capture``
 and ``corr_rx --cor-fmt``, each ``python -m`` in a process of its own,
 their files equal to the driver path's truths with no packet lost.
+
+The ninth path, one mesh across processes, follows: two processes of
+this script (``--multihost-worker``) join a gloo group and form one 2x2
+mesh over ``cuda:0`` with ``parallel/multihost.py``, two shards each,
+first with the chan columns and then with the time rows spread over the
+processes; each runs the first golden window gulp by gulp through
+``xengine_sharded_state_fn`` (fast partials carried, the fast dump, the
+first slow update) and one int8 FX window through
+``fx_sharded_state_fn``, gathers every product with
+``process_allgather``, and reports its SHA-256, its launch counts, its
+wall per window, the bytes and seconds of each collective that crossed
+processes and the device ms of a dump call; every product must equal the
+single-process 2x2 mesh's on the same inputs byte for byte, in both
+processes.
 
 Beside the four tensor-core kernels it times a library contraction as a
 yardstick, on earlier lines and labelled "contraction only":
@@ -170,6 +187,7 @@ from caltech_bifrost_dsp_tpu_torch.ops.correlate import (Vis, chan_major,
                                                          correlate_chan_major)
 from caltech_bifrost_dsp_tpu_torch.ops.kernels import _build
 from caltech_bifrost_dsp_tpu_torch.parallel import mesh as pm
+from caltech_bifrost_dsp_tpu_torch.parallel import multihost
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.ring import HistoryRing
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
@@ -1481,13 +1499,15 @@ class _MMsgHdr(ctypes.Structure):
     _fields_ = [("hdr", _MsgHdr), ("len", ctypes.c_uint)]
 
 
-def _receive_cor(conn, expected: int, size: int) -> None:
+def _receive_cor(conn, shm_name: str, expected: int, size: int) -> None:
     """In a process of its own: bind a loopback UDP socket with as large a
     receive buffer as the host allows, report (port, buffer bytes), read
-    datagrams of up to ``size`` bytes straight into one preallocated buffer
-    with ``recvmmsg`` (up to 256 a call; a kernel timeout of 5 s once the
-    first has come, 120 s before) until ``expected`` arrived or the stream
-    stops, and send back their lengths and their bytes."""
+    datagrams of up to ``size`` bytes straight into the shared memory
+    ``shm_name`` with ``recvmmsg`` (up to 256 a call; a kernel timeout of
+    5 s once the first has come, 120 s before) until ``expected`` arrived
+    or the stream stops, and send back their lengths.  The bytes stay in
+    the shared memory: a pipe carries a slow dump's 383 MB slowly under
+    gVisor."""
     sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     want = 1 << 30
     try:
@@ -1500,60 +1520,72 @@ def _receive_cor(conn, expected: int, size: int) -> None:
         sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVTIMEO,
                         struct.pack("ll", seconds, 0))
 
-    buf = (ctypes.c_char * (expected * size))()
-    iovs = (_IoVec * expected)()
-    msgs = (_MMsgHdr * expected)()
-    base = ctypes.addressof(buf)
-    for k in range(expected):
-        iovs[k].base, iovs[k].len = base + k * size, size
-        msgs[k].hdr.iov = ctypes.pointer(iovs[k])
-        msgs[k].hdr.iovlen = 1
-    libc = ctypes.CDLL(None, use_errno=True)
-    libc.recvmmsg.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-                              ctypes.c_int, ctypes.c_void_p]
-    kernel_timeout(120)
-    conn.send((sock.getsockname()[1],
-               sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)))
-    got = 0
-    while got < expected:
-        n = libc.recvmmsg(sock.fileno(),
-                          ctypes.addressof(msgs) + got * ctypes.sizeof(
-                              _MMsgHdr), min(256, expected - got), 0, None)
-        if n <= 0:  # the kernel timeout: the stream has stopped
-            break
-        if got == 0:
-            kernel_timeout(5)
-        got += n
-    sock.close()
-    conn.send([msgs[k].len for k in range(got)])
-    conn.send_bytes(memoryview(buf)[:got * size])
+    shm = shared_memory.SharedMemory(name=shm_name)
+    buf = (ctypes.c_char * (expected * size)).from_buffer(shm.buf)
+    try:
+        iovs = (_IoVec * expected)()
+        msgs = (_MMsgHdr * expected)()
+        base = ctypes.addressof(buf)
+        for k in range(expected):
+            iovs[k].base, iovs[k].len = base + k * size, size
+            msgs[k].hdr.iov = ctypes.pointer(iovs[k])
+            msgs[k].hdr.iovlen = 1
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.recvmmsg.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_uint, ctypes.c_int,
+                                  ctypes.c_void_p]
+        kernel_timeout(120)
+        conn.send((sock.getsockname()[1],
+                   sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)))
+        got = 0
+        while got < expected:
+            n = libc.recvmmsg(sock.fileno(),
+                              ctypes.addressof(msgs) + got * ctypes.sizeof(
+                                  _MMsgHdr), min(256, expected - got), 0,
+                              None)
+            if n <= 0:  # the kernel timeout: the stream has stopped
+                break
+            if got == 0:
+                kernel_timeout(5)
+            got += n
+        sock.close()
+        conn.send([msgs[k].len for k in range(got)])
+    finally:
+        del buf
+        shm.close()
 
 
 class CorReceiver:
     """COR packets of ``size`` bytes received by another process
-    (:func:`_receive_cor`), so that the receiver shares no interpreter with
-    the pipeline."""
+    (:func:`_receive_cor`) into shared memory, so that the receiver shares
+    no interpreter with the pipeline."""
 
     def __init__(self, expected: int, size: int):
         ctx = multiprocessing.get_context("spawn")
         self.size = size
+        self.shm = shared_memory.SharedMemory(create=True,
+                                              size=expected * size)
         self.conn, child = ctx.Pipe()
         self.proc = ctx.Process(target=_receive_cor, daemon=True,
-                                args=(child, expected, size))
+                                args=(child, self.shm.name, expected, size))
         self.proc.start()
         check(self.conn.poll(120), "COR receiver did not start")
         port, self.rcvbuf = self.conn.recv()
         self.addr = ("127.0.0.1", port)
 
     def collect(self) -> list:
-        check(self.conn.poll(600), "COR receiver did not finish")
-        lengths = self.conn.recv()
-        raw = self.conn.recv_bytes()
-        self.proc.join(30)
-        check(all(n == self.size for n in lengths),
-              f"COR packets of other sizes than {self.size}: "
-              f"{sorted(set(lengths))}")
-        size = self.size
+        try:
+            check(self.conn.poll(600), "COR receiver did not finish")
+            lengths = self.conn.recv()
+            self.proc.join(30)
+            check(all(n == self.size for n in lengths),
+                  f"COR packets of other sizes than {self.size}: "
+                  f"{sorted(set(lengths))}")
+            size = self.size
+            raw = bytes(self.shm.buf[:len(lengths) * size])
+        finally:
+            self.shm.close()
+            self.shm.unlink()
         return [raw[k * size:(k + 1) * size] for k in range(len(lengths))]
 
 
@@ -1661,27 +1693,35 @@ WIRE_GBPS = (4.0, 1.5)
 COR_MBPS = (-1, 1500, 600)
 
 
-def pick_cor_rate(card: str, slow) -> float:
-    """The C++ packetizer alone: the plain slow dump as COR packets to a
-    receiver in another process, unthrottled first; returns the first rate
-    cap at which every packet arrives.  Prints each try."""
+def cor_slow_dump_alone(card: str, slow, ref: "DriverRun") -> float:
+    """The driver's C++ COR sink on the slow dump alone: the plain slow
+    dump through ``CorrFullOutput(native_dest=...)`` (the C++ packetizer)
+    to a receiver in another process, unthrottled first; its packets byte
+    for byte the Python encoder's in the golden-source driver run.  Returns
+    the first rate cap at which every packet arrives.  Prints each try."""
     cfg = DRIVER_CFG
     nbl = cfg.nstand * (cfg.nstand + 1) // 2
-    fields = sink._cor_header_fields(cfg, SYNC_TIME, 0, cfg.acc_len_slow)
     for mbps in COR_MBPS:
         rx = CorReceiver(nbl, cor_packet_size(cfg))
+        out = sink.CorrFullOutput(cfg, native_dest=rx.addr, max_mbps=mbps,
+                                  use_cor_fmt=True)
         t0 = time.perf_counter()
-        n = native.cor5c_send_matrix(slow[0], slow[1], cfg.nstand, cfg.npol,
-                                     *fields, dest_ip=rx.addr[0],
-                                     port=rx.addr[1], max_mbps=mbps)
+        n = out.send_matrix_planes(slow[0], slow[1], SYNC_TIME, 0,
+                                   cfg.acc_len_slow)
         dt = time.perf_counter() - t0
         got = rx.collect()
         nbyte = sum(len(p) for p in got)
-        print(f"[{card}] C++ COR packetizer alone, max_mbps {mbps}: {n} "
-              f"packets sent in {dt:.3f} s ({8 * nbyte / dt / 1e9:.2f} Gb/s "
-              f"of the bytes received), {len(got)} received by another "
-              f"process (receive buffer {rx.rcvbuf} B)", flush=True)
+        print(f"[{card}] C++ COR packetizer (CorrFullOutput native_dest) on "
+              f"the slow dump alone, max_mbps {mbps}: {n} packets sent in "
+              f"{dt:.3f} s ({8 * nbyte / dt / 1e9:.2f} Gb/s of the bytes "
+              f"received), {len(got)} received by another process "
+              f"(receive buffer {rx.rcvbuf} B)", flush=True)
         if len(got) == nbl:
+            check(packet_digests({"cor": got})["cor"] == ref.digests["cor"],
+                  "[C++ COR] packets differ from the Python encoder's in "
+                  "the golden-source driver run")
+            print("[C++ COR] packets byte for byte the Python encoder's in "
+                  "the golden-source driver run (SHA-256)", flush=True)
             return mbps
     raise RuntimeError("FAILED: COR packets lost at every rate cap")
 
@@ -1778,30 +1818,21 @@ def run_fx_capture(card: str, gains_np, qs: float) -> dict:
 
 def run_wire_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
                   ref: DriverRun) -> dict:
-    """The sixth path, the wire: the driver with its COR slow dump through
-    the C++ packetizer, then the driver fed by the native capture from a
-    blaster process (the same golden windows), then one FX window over
-    ``AdcCaptureSource``.  The packets of the first two equal the
-    ``TPU_ENGINES`` driver run's byte for byte.  Returns the launch
+    """The sixth path, the wire: the driver's C++ COR sink on the slow dump
+    alone, then the driver fed by the native capture from a blaster
+    process (the same golden windows, its COR slow dump through the C++
+    packetizer), then one FX window over ``AdcCaptureSource``.  The COR
+    packets and those of the capture run equal the ``TPU_ENGINES`` driver
+    run's byte for byte.  Prints the wall of each part; returns the launch
     counts."""
     cfg = DRIVER_CFG
-    mbps = pick_cor_rate(card, slow)
+    walls = {}
+    mbps = timed(walls, "C++ COR slow dump", cor_slow_dump_alone, card,
+                 slow, ref)
     switch = sys.getswitchinterval()
     sys.setswitchinterval(5e-4)
     try:
-        run = run_driver(dev, card, "C++ COR", dict(TPU_ENGINES), blocks,
-                         gains_np, truth, slow, cor_mbps=mbps)
-        check(run.digests == ref.digests, f"[driver C++ COR] packets "
-              f"differ from the Python encoder's: {run.digests} vs "
-              f"{ref.digests}")
-        print(f"[{card}] driver TPU_ENGINES, same packets (SHA-256 per sink) "
-              f"from the C++ COR packetizer and from the Python encoder: "
-              f"host time per window " + ", ".join(
-                  f"{a:.3f}/{b:.3f} s" for a, b in zip(run.per_window,
-                                                      ref.per_window))
-              + f" (C++/Python); {run.gbps:.2f} against {ref.gbps:.2f} Gb/s "
-              f"sustained", flush=True)
-        total = dict(run.counts)
+        t0 = time.perf_counter()
         fast = []
         for block in blocks:
             packed = torch.from_numpy(block.reshape(
@@ -1823,6 +1854,7 @@ def run_wire_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
                 continue
             break
         del frames, fast
+        walls["capture driver"] = time.perf_counter() - t0
     finally:
         sys.setswitchinterval(switch)
     check(run.digests == ref.digests, f"[driver capture] packets differ "
@@ -1830,9 +1862,10 @@ def run_wire_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
     print(f"[{card}] driver fed by the native capture: packets byte for "
           f"byte those of the golden-source run; {run.gbps:.2f} Gb/s "
           f"sustained through the driver", flush=True)
-    total = {name: total[name] + run.counts[name] for name in KERNELS}
-    fx = run_fx_capture(card, gains_np, qs)
-    return {name: total[name] + fx[name] for name in KERNELS}
+    fx = timed(walls, "FX capture", run_fx_capture, card, gains_np, qs)
+    print(f"[wire] wall by part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    return {name: run.counts[name] + fx[name] for name in KERNELS}
 
 
 #: the fifth path: mesh shapes over one card, every shard on ``cuda:0``
@@ -1998,7 +2031,7 @@ class MeshFx:
               flush=True)
 
 
-def mesh_times(dev, card: str, gains, pairs) -> None:
+def mesh_times(dev, card: str, gains, pairs) -> dict:
     """Device time per whole-window call of the sharded X/B step on one
     card beside the unsharded step with the same engines."""
     cfg = MESH_CFG
@@ -2019,13 +2052,15 @@ def mesh_times(dev, card: str, gains, pairs) -> None:
     print(f"[{card}] X/B window (dump call, one 2400-spectra block), device "
           f"time: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()),
           flush=True)
+    return ms
 
 
 def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
-                  driver_ref: DriverRun) -> dict:
+                  driver_ref: DriverRun) -> tuple[dict, dict]:
     """The fifth path: the sharded programs of ``parallel/mesh.py`` at
     full width with every shard on this card, and the driver over a 2x2
-    mesh with every sink.  Returns the path's launch counts."""
+    mesh with every sink.  Returns the path's launch counts and the
+    device ms of a dump call by mesh shape."""
     gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
     pairs = torch.from_numpy(PAIRS).to(dev)
     # the unsharded runs come first: their launches are not the path's
@@ -2047,7 +2082,7 @@ def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
           flush=True)
     fx.times(card)
     del fx
-    mesh_times(dev, card, gains, pairs)
+    mesh_ms = mesh_times(dev, card, gains, pairs)
     vols = pm.collective_volumes(LWA352, 2, 2)
     print("collective_volumes(LWA352, 2, 2): " + json.dumps(vols),
           flush=True)
@@ -2068,7 +2103,8 @@ def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
     print(f"[driver mesh 2x2] COR, subsel, PBEAM and IBEAM packets byte for "
           f"byte those of the unsharded TPU_ENGINES run ({run.wall:.3f} s "
           f"against {driver_ref.wall:.3f} s wall)", flush=True)
-    return {name: programs[name] + run.counts[name] for name in KERNELS}
+    return ({name: programs[name] + run.counts[name] for name in KERNELS},
+            mesh_ms)
 
 
 def run_schedules_path(dev, cfg, blocks, slow) -> dict:
@@ -3181,6 +3217,237 @@ def run_offline_path(dev, card: str, blocks, gains_np, truth, slow) -> dict:
     return counts
 
 
+#: the ninth path: two processes, each with two shards on ``cuda:0``, one
+#: 2x2 mesh between them, each placement in turn
+MULTIHOST_PLACEMENTS = ("chan", "time")
+MULTIHOST_DEVICES = ["cuda:0"] * 2
+MULTIHOST_TIMEOUT_S = 600
+
+
+def beam_gains_np() -> list:
+    """The integer beam gains every path commands (seed 0xBF)."""
+    rng = np.random.RandomState(0xBF)
+    shape = (LWA352.nchan, LWA352.nbeam, LWA352.ninput)
+    return [rng.randint(-8, 9, shape).astype(np.float32) for _ in range(2)]
+
+
+class MultihostInputs:
+    """What every process of the ninth path passes to the sharded steps:
+    the first golden window gulp by gulp, the gains, the selection, and
+    one int8 FX window with its carried tail (the mesh path's, made on
+    the card from the same seed)."""
+
+    def __init__(self, dev, block: np.ndarray, gains_np, qs: float):
+        cfg = MESH_CFG
+        self.window = torch.from_numpy(block.reshape(
+            cfg.acc_len, cfg.nchan, cfg.ninput)).to(dev)
+        self.gains = bf.BeamGains(*(torch.from_numpy(x).to(dev)
+                                    for x in gains_np))
+        self.pairs = torch.from_numpy(PAIRS).to(dev)
+        self.fx = MeshFx(dev, qs, self.gains, self.pairs)
+
+    def gulps(self):
+        cfg = MESH_CFG
+        g, n = cfg.ntime_gulp, cfg.acc_len // cfg.ntime_gulp
+        for k in range(n):
+            yield k == 0, k == n - 1, self.window[k * g:(k + 1) * g]
+
+
+def multihost_products(mesh, x: MultihostInputs, gather) -> tuple:
+    """One golden X/B window gulp by gulp (the fast partials carried
+    between gulps, the fast dump, the first slow update) and one int8 FX
+    window through the stateful sharded steps on ``mesh``.  Returns every
+    product through ``gather`` (``Sharded`` -> CPU tensor) and the wall
+    seconds of each window (to the last kernel's end)."""
+    cfg, walls, keep = MESH_CFG, {}, {}
+    state = pm.zero_sharded_state(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, (first, last, gulp) in enumerate(x.gulps()):
+        step = pm.xengine_sharded_state_fn(cfg, mesh, first, last, True)
+        state, out, vlbi = step(state, gulp, x.gains, x.pairs)
+        keep[f"xb power {k}"], keep[f"xb vlbi {k}"] = out.bf_power, vlbi
+    keep.update({"xb fast re": out.vis.real, "xb fast im": out.vis.imag,
+                 "xb subsel re": out.subsel.real,
+                 "xb subsel im": out.subsel.imag,
+                 "xb slow re": state[1].real, "xb slow im": state[1].imag})
+    torch.cuda.synchronize()
+    walls["X/B"] = time.perf_counter() - t0
+    fx = x.fx
+    step = pm.fx_sharded_state_fn(fx.cfg, mesh, True, True, True)
+    t0 = time.perf_counter()
+    _, out, vlbi = step(pm.zero_sharded_state(fx.cfg, mesh),
+                        *fx.sharded_args(), x.gains, x.pairs)
+    torch.cuda.synchronize()
+    walls["FX"] = time.perf_counter() - t0
+    keep.update({"fx power": out.bf_power, "fx vlbi": vlbi,
+                 "fx fast re": out.vis.real, "fx fast im": out.vis.imag,
+                 "fx subsel re": out.subsel.real,
+                 "fx subsel im": out.subsel.imag})
+    return {k: gather(v) for k, v in keep.items()}, walls
+
+
+def digests(products: dict) -> dict:
+    """SHA-256 of each product's bytes, with its dtype and shape."""
+    return {k: f"{v.dtype} {tuple(v.shape)} " + hashlib.sha256(
+        v.contiguous().numpy().data).hexdigest() for k, v in products.items()}
+
+
+def multihost_step_ms(dev, mesh, x: MultihostInputs) -> float:
+    """CUDA-event device ms of a dump call of the sharded X/B step on one
+    2400-spectra block (the mesh path's timing), in this process."""
+    cfg = MESH_CFG
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    packed = torch.randint(0, 256, (cfg.acc_len, cfg.nchan, cfg.ninput),
+                           generator=g, device=dev, dtype=torch.uint8)
+    state = pm.zero_sharded_state(cfg, mesh)
+    step = pm.xengine_sharded_state_fn(cfg, mesh, True, True, False)
+    return cuda_ms(lambda: step(state, packed, x.gains, x.pairs), 3)
+
+
+def multihost_worker(argv) -> int:
+    """``chip_smoke.py --multihost-worker RANK PORT QS``: one of the
+    ninth path's two processes.  Joins the gloo group at
+    ``127.0.0.1:PORT``, makes the inputs every process passes (the first
+    golden window, the gains, the FX window of requant gain ``QS``, a float
+    in hex), and per placement runs :func:`multihost_products` on the
+    global 2x2 mesh (launch counts set to 0 just before, read just after),
+    then times a dump call; prints one ``MULTIHOST`` JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    rank, port, qs = int(argv[0]), int(argv[1]), float.fromhex(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    _build.library()
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank)
+    cfg = MESH_CFG
+    x = MultihostInputs(dev, golden_windows(DRIVER_CFG, 1)[0],
+                        beam_gains_np(), qs)
+    report = {}
+    for placement in MULTIHOST_PLACEMENTS:
+        mesh = multihost.global_mesh(placement=placement,
+                                     devices=MULTIHOST_DEVICES)
+        zero_counts()
+        got, walls = multihost_products(mesh, x,
+                                        multihost.process_allgather)
+        counts = read_counts()
+        traffic = json.loads(json.dumps(mesh.traffic))
+        mesh.traffic.clear()
+        step_ms = multihost_step_ms(dev, mesh, x)
+        report[placement] = {
+            "digests": digests(got), "counts": counts, "walls": walls,
+            "traffic": traffic, "step_ms": step_ms,
+            "step_traffic": mesh.traffic,
+            "local": mesh.local_coords(),
+            "chan_range": multihost.local_channel_range(cfg, mesh)}
+        del got
+    torch.distributed.destroy_process_group()
+    print("MULTIHOST " + json.dumps({"rank": rank, "report": report}),
+          flush=True)
+    return 0
+
+
+def run_multihost_path(dev, card: str, block: np.ndarray, gains_np,
+                       qs: float, mesh_ms: dict) -> dict:
+    """The ninth path: two processes of this script (gloo, staged through
+    pinned host memory) run one 2x2 mesh over ``cuda:0`` at full width,
+    each placement in turn, on the inputs this process makes from
+    ``block`` (the first golden window, which each worker makes again from
+    its seed); every product they gather equal byte for byte to the
+    single-process 2x2 mesh's.  Returns the launch counts summed over both
+    processes and placements."""
+    x = MultihostInputs(dev, block, gains_np, qs)
+    want, walls = multihost_products(pm.make_mesh(
+        2, 2, devices=["cuda:0"] * 4), x, lambda s: pm.unshard(s).cpu())
+    want = digests(want)
+    print(f"[{card}] multihost: the single-process 2x2 mesh on the same "
+          f"inputs, X/B window {walls['X/B']:.3f} s, FX window "
+          f"{walls['FX']:.3f} s wall; {len(want)} products", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    procs, late = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [Path(tmp) / f"worker{rank}.log" for rank in range(2)]
+        try:
+            port = free_tcp_port()
+            t0 = time.perf_counter()
+            for rank, log in enumerate(logs):
+                with open(log, "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--multihost-worker", str(rank), str(port),
+                         qs.hex()],
+                        stdout=f, stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(max(1.0, t0 + MULTIHOST_TIMEOUT_S
+                           - time.perf_counter()))
+            wall = time.perf_counter() - t0
+        except subprocess.TimeoutExpired as e:
+            late = e
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = [log.read_text() for log in logs]
+    reports = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("MULTIHOST ")]
+        if late or p.returncode or not line:
+            print(out, flush=True)
+            raise RuntimeError(f"FAILED: multihost worker {rank} exited "
+                               f"{p.returncode}" + (f" ({late})" if late
+                                                    else ""))
+        reports.append(json.loads(line[-1][len("MULTIHOST "):])["report"])
+    total = {name: 0 for name in KERNELS}
+    for placement in MULTIHOST_PLACEMENTS:
+        label = f"[multihost {placement}]"
+        r0, r1 = (r[placement] for r in reports)
+        for got in (r0["digests"], r1["digests"]):
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            check(not bad and got.keys() == want.keys(),
+                  f"{label} products differ from the single-process "
+                  f"2x2 mesh's: {bad}")
+        counts = {k: r0["counts"][k] + r1["counts"][k] for k in KERNELS}
+        # every process runs its shards' correlator, beamformer and
+        # channelizer; the gather runs where shard (0, c) is
+        for name in ("corr_blk", "beamform_products", "pfb_direct"):
+            check(r0["counts"][name] > 0 and r1["counts"][name] > 0,
+                  f"{label} {name} not launched in both processes")
+        check(counts["subsel_gather"] > 0, f"{label} subsel_gather not "
+              "launched")
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        vols = multihost.split_volumes(LWA352, 2, 2, placement)
+        print(f"{label} 2 processes x 2 shards of cuda:0, gloo: every "
+              f"product gathered in both processes ({len(want)}: fast, "
+              f"slow, subsel exact int32; power, VLBI) byte for byte the "
+              f"single-process 2x2 mesh's; shards {r0['local']} and "
+              f"{r1['local']}, channels {r0['chan_range']} and "
+              f"{r1['chan_range']}; kernel launches {counts}", flush=True)
+        for rank, r in enumerate((r0, r1)):
+            sent = {k: v["sent_bytes"] for k, v in r["traffic"].items()}
+            secs = {k: round(v["transfer_s"], 4)
+                    for k, v in r["traffic"].items()}
+            print(f"[{card}] multihost {placement} process {rank}: wall X/B "
+                  f"window (5 gulps) {r['walls']['X/B']:.3f} s, FX window "
+                  f"{r['walls']['FX']:.3f} s; bytes sent to the other "
+                  f"process by collective {sent}, seconds staging and in "
+                  f"gloo {secs}; dump call {r['step_ms']:.3f} ms device "
+                  f"(CUDA events; the single-process 2x2 mesh "
+                  f"{mesh_ms['2x2']:.3f} ms in this run), "
+                  f"its traffic {r['step_traffic']}", flush=True)
+        print(f"{label} split_volumes(LWA352, 2, 2, {placement!r}), bytes "
+              f"per window with every shard on a device of its own: "
+              + json.dumps({v["collective"]: {
+                  "cross": v["cross_process_bytes_per_window"],
+                  "in": v["in_process_bytes_per_window"]}
+                  for v in vols["collectives"]}), flush=True)
+    print(f"[{card}] multihost: both workers {wall:.1f} s from start to "
+          f"exit", flush=True)
+    return total
+
+
 def timed(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall time into ``walls[name]``."""
     t0 = time.perf_counter()
@@ -3214,10 +3481,7 @@ def main() -> int:
     timed(walls, "triu", phase_triu, dev, card, results)
     timed(walls, "pfb_direct", phase_pfb_direct, dev, card, results)
 
-    rng = np.random.RandomState(0xBF)
-    shape = (LWA352.nchan, LWA352.nbeam, LWA352.ninput)
-    gains_np = [rng.randint(-8, 9, shape).astype(np.float32)
-                for _ in range(2)]
+    gains_np = beam_gains_np()
     # path 1, X/B: packed golden input
     blocks = golden_windows(DRIVER_CFG, 3)
     zero_counts()
@@ -3241,8 +3505,8 @@ def main() -> int:
     dr, truth, slow, ref = timed(walls, "driver", run_driver_path, dev, card,
                                  blocks, gains_np)
     # path 5, the device mesh: sharded programs and the mesh driver
-    me = timed(walls, "mesh", run_mesh_path, dev, card, blocks, gains_np, qs,
-               truth, slow, ref)
+    me, mesh_ms = timed(walls, "mesh", run_mesh_path, dev, card, blocks,
+                        gains_np, qs, truth, slow, ref)
     # path 6, the wire: C++ COR out, native capture in
     wi = timed(walls, "wire", run_wire_path, dev, card, blocks, gains_np, qs,
                truth, slow, ref)
@@ -3257,11 +3521,15 @@ def main() -> int:
     # full-width dump, the product receivers as processes
     of = timed(walls, "offline", run_offline_path, dev, card, blocks,
                gains_np, truth, slow)
-    del blocks, truth, slow
+    del truth, slow
+    # path 9, one mesh across two processes on this card
+    mh = timed(walls, "multihost", run_multihost_path, dev, card,
+               blocks[0], gains_np, qs, mesh_ms)
+    del blocks
     launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
-                + wi[name] + sc[name] + rc[name] + of[name]
+                + wi[name] + sc[name] + rc[name] + of[name] + mh[name]
                 for name in KERNELS}
-    print(f"kernel launches over the eight paths and the schedules run: "
+    print(f"kernel launches over the nine paths and the schedules run: "
           f"{launches}", flush=True)
 
     t1 = time.perf_counter()
@@ -3332,4 +3600,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(sys.argv[2:]))
     sys.exit(main())

@@ -438,6 +438,56 @@ def test_cli_unported_flags_exit_2(extra, capsys):
     assert "CUDA devices" in capsys.readouterr().err
 
 
+#: the operator's FX command line (docs/operations.md), on the fake source
+JAX_FX_ARGS = ["--fx", "--adc-dtype", "int8", "--pfb-engine", "pallas",
+               "--pfb-precision", "bf16", "--corr-engine", "pallas_blk",
+               "--bf-engine", "pallas"]
+
+
+def test_cli_takes_a_jax_fx_command_line(capsys):
+    """``--pfb-engine`` is a name in the port (both values run the one
+    channelizer kernel): a JAX FX command line parses in both CLIs to the
+    same configuration, and the port's runs it on the CPU."""
+    small = ["--fakesource", "--nstand", "8", "--nchan", "32",
+             "--nbeam", "4", "--ntime_gulp", "48", "--acc_len", "96",
+             "--acc_len_slow", "192"]
+    args = pipeline.build_parser().parse_args(small + JAX_FX_ARGS)
+    jargs = jcli.build_parser().parse_args(small + JAX_FX_ARGS)
+    cfg = pipeline.build_config(args)
+    want = C.XEngineConfig(
+        nstand=8, nchan=32, nbeam=4, ntime_gulp=48, acc_len=96,
+        acc_len_slow=192, pfb_fft_impl=jargs.pfb_impl,
+        pfb_engine=jargs.pfb_engine, pfb_precision=jargs.pfb_precision,
+        adc_dtype=jargs.adc_dtype, corr_engine=jargs.corr_engine,
+        bf_engine=jargs.bf_engine, subsel_engine=cfg.subsel_engine)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert pipeline.main(small + JAX_FX_ARGS + [
+        "--device", "cpu", "--ngulp", "4", "-q"]) == 0
+    assert "2 fast dumps, 1 slow dumps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cli", ["pipeline", "bench_fx"])
+def test_pfb_engine_pallas_with_fft_exits_2(cli, capsys):
+    """``--pfb-engine pallas`` with an FFT channelizer is refused by the
+    configuration, as in the JAX package (there a ``ValueError``): the
+    port's CLI and FX bench exit 2 naming it."""
+    from caltech_bifrost_dsp_tpu_torch.scripts import bench_fx
+
+    jargs = jcli.build_parser().parse_args(
+        ["--fx", "--pfb-engine", "pallas", "--pfb-impl", "fft"])
+    with pytest.raises(ValueError, match="pfb_engine='pallas'"):
+        C.XEngineConfig(pfb_engine=jargs.pfb_engine,
+                        pfb_fft_impl=jargs.pfb_impl)
+    argv = {"pipeline": ["--fakesource", "--fx", "--pfb-engine", "pallas",
+                         "--pfb-impl", "fft", "--device", "cpu"],
+            "bench_fx": ["--pfb-engine", "pallas", "--fft-impl", "fft"]}
+    main = pipeline.main if cli == "pipeline" else bench_fx.main
+    with pytest.raises(SystemExit) as exc:
+        main(argv[cli])
+    assert exc.value.code == 2
+    assert "pfb_engine='pallas'" in capsys.readouterr().err
+
+
 def _polling(base):
     """A ``fill_into`` source over ``base`` that answers one poll timeout
     (None) at its third call, then real gulps; after ``nreal`` real gulps

@@ -1,5 +1,6 @@
 """The port, its CLI, the operator scripts, the offline, receiver and
-golden CLIs, the FX bench and ``chip_smoke.py`` import without JAX and
+golden CLIs, the FX bench, the multi-process mesh and its test worker and
+``chip_smoke.py`` import without JAX and
 without any module of the JAX package (and without ``grpc``, which only an
 etcd store needs; the offline CLIs replay without ``h5py``, which only
 their writers need), an ``XEnginePipeline`` runs on the CPU (unsharded and
@@ -44,6 +45,7 @@ import caltech_bifrost_dsp_tpu_torch.ops.pfb
 import caltech_bifrost_dsp_tpu_torch.ops.pfb_fused
 import caltech_bifrost_dsp_tpu_torch.ops.xgpu_order
 import caltech_bifrost_dsp_tpu_torch.parallel.mesh
+import caltech_bifrost_dsp_tpu_torch.parallel.multihost
 import caltech_bifrost_dsp_tpu_torch.runtime.arming
 import caltech_bifrost_dsp_tpu_torch.runtime.driver
 import caltech_bifrost_dsp_tpu_torch.runtime.ring
@@ -66,6 +68,8 @@ import caltech_bifrost_dsp_tpu_torch.utils.proclog
 import caltech_bifrost_dsp_tpu_torch.utils.skycoords
 import caltech_bifrost_dsp_tpu_torch.utils.timeutils
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_multihost_worker
 from caltech_bifrost_dsp_tpu_torch.config import TINY
 from caltech_bifrost_dsp_tpu_torch.io.sink import CorrPartOutput
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
