@@ -10,15 +10,17 @@ Modes follow the reference's DummySource (dummy_source_block.py):
 ``ramp`` (byte counter), ``random`` (``randint(0, 255)`` from a seeded
 RandomState, drawn in call order) and ``testfile`` (loops a golden input
 file in gulp-sized chunks, get_testfile_gulp:207); ``target_throughput``
-caps emission in Gb/s (lines 275-283).  Each gulp is uint8 [ntime_gulp,
-nchan, ninput], the capture-ring order.  The same seed gives the JAX
-sources' bytes.
+caps emission in Gb/s (lines 275-283); ``skip_write`` emits zeros with no
+generation cost, for benchmarking what lies downstream (lines 130-135).
+Each gulp is uint8 [ntime_gulp, nchan, ninput], the capture-ring order.
+The same seed gives the JAX sources' bytes.
 """
 
 from __future__ import annotations
 
 import json
 import time
+import weakref
 
 import numpy as np
 
@@ -53,11 +55,13 @@ def sequence_header(cfg: XEngineConfig, seq0: int, sync_time: int = 0,
 class SyntheticSource:
     def __init__(self, cfg: XEngineConfig, mode: str = "ramp",
                  testfile: str | None = None, seed: int = 0xdeadbeef,
-                 target_throughput_gbps: float = 1000.0):
+                 target_throughput_gbps: float = 1000.0,
+                 skip_write: bool = False):
         if mode not in ("ramp", "random", "testfile"):
             raise ValueError(f"unknown mode {mode!r}")
         self.cfg = cfg
         self.mode = mode
+        self.skip_write = skip_write
         self.target_gbps = target_throughput_gbps
         self._rng = np.random.RandomState(seed)
         self._testdata = None
@@ -76,6 +80,9 @@ class SyntheticSource:
         self._t_start = None
         self._fill_i = 0
         self._ramp = None
+        # reservations known to hold only this source's zeros:
+        # (id of the root buffer, address, size) -> weakref to that buffer
+        self._zeroed_slots: dict = {}
 
     def header(self, seq0: int = 0, **kw) -> dict:
         return sequence_header(self.cfg, seq0, **kw)
@@ -94,10 +101,13 @@ class SyntheticSource:
 
     def gulp(self, index: int) -> np.ndarray:
         """Gulp ``index``: uint8 [ntime_gulp, nchan, ninput], throttled to
-        the target throughput.  ``random`` draws in call order."""
+        the target throughput.  ``random`` draws in call order;
+        ``skip_write`` gives zeros whatever the mode."""
         cfg = self.cfg
         shape = (cfg.ntime_gulp, cfg.nchan, cfg.ninput)
-        if self.mode == "ramp":
+        if self.skip_write:
+            data = np.zeros(shape, np.uint8)
+        elif self.mode == "ramp":
             n = int(np.prod(shape))
             data = ((index * n + np.arange(n)) & 0xFF).astype(
                 np.uint8).reshape(shape)
@@ -120,13 +130,28 @@ class SyntheticSource:
 
     def fill_into(self, dest: np.ndarray) -> int:
         """Write the next gulp into ``dest`` (a staging-ring reservation)
-        and return its first spectra index."""
+        and return its first spectra index.  ``skip_write`` writes zeros
+        once per reservation and skips even that when a recycled one is
+        known to hold only this source's zeros."""
         cfg = self.cfg
         out = dest.view(np.uint8).reshape(cfg.ntime_gulp, cfg.nchan,
                                           cfg.ninput)
         i = self._fill_i
         self._fill_i += 1
-        if self.mode == "ramp":
+        if self.skip_write:
+            # the key holds the root buffer, not only an address: a ring
+            # rebuilt at a recycled address holds garbage.  The weakref
+            # pins the buffer's id for as long as the entry lives.
+            base = dest
+            while base.base is not None:
+                base = base.base
+            key = (id(base), dest.__array_interface__["data"][0],
+                   dest.nbytes)
+            ref = self._zeroed_slots.get(key)
+            if ref is None or ref() is not base:
+                out[...] = 0
+                self._zeroed_slots[key] = weakref.ref(base)
+        elif self.mode == "ramp":
             flat = out.reshape(-1)
             if self._ramp is None or self._ramp.size != flat.size:
                 self._ramp = (np.arange(flat.size) & 0xFF).astype(np.uint8)

@@ -102,6 +102,20 @@ def correlate_accumulate(packed: torch.Tensor, ntime_gulp: int,
     return vis if acc is None else acc + vis
 
 
+def vis_to_numpy_complex(vis: Vis) -> np.ndarray:
+    """Dense complex128 numpy view for verification (exact: int32 fits
+    float64)."""
+    return (vis.real.cpu().numpy().astype(np.int64)
+            + 1j * vis.imag.cpu().numpy().astype(np.int64)
+            ).astype(np.complex128)
+
+
+def long_accumulate(vis_new: Vis, vis_acc: Vis) -> Vis:
+    """One CorrAcc step: int32 add of a fast dump into the slow accumulator
+    (the reference's ``BFMap("a += b")``, corr_acc_block.py:304-306)."""
+    return vis_acc + vis_new
+
+
 def autocorr_spectra(vis_dense, nstand: int, npol: int = 2) -> np.ndarray:
     """Per-stand autocorrelation spectra from a dense visibility cube
     [nchan, ninput, ninput] (complex, or the real plane alone) -> real f32

@@ -17,6 +17,12 @@ The JAX package has two spectral transforms (``cfg.pfb_fft_impl``
 function, bins 0..nchan-1 of the real DFT of each FIR frame.  The port
 has one channelizer for all of them: :func:`channelize_pack_imajor`.
 
+The complex-dtype :func:`pfb_channelize`, :func:`pfb_channelize_planes`,
+:func:`quantize_4bit_planes` and :func:`quantize_4bit` are plain functions
+that nothing on the port's paths calls (its ``fx_step`` takes both
+transforms through the one channelizer); they stand beside the JAX
+functions of those names.
+
 :func:`upchannelize` (the offline pipelines' fine channelizer) runs no
 kernel of the port's: the JAX package computes it outside any Pallas
 kernel, with ``jnp.fft.fft`` or two float32 matrix products.
@@ -233,6 +239,77 @@ def quantize_4bit_planes_imajor(re: torch.Tensor, im: torch.Tensor,
     """:func:`quantize_pack_imajor`, then the packed bytes transposed to
     the correlator's [nspec, nchan, ninput]."""
     return quantize_pack_imajor(re, im, scale).permute(1, 2, 0)
+
+
+def _fir_frames(x: torch.Tensor, window, nchan: int, ntap: int
+                ) -> torch.Tensor:
+    """float64 FIR [nspec, L, ...] of ADC [ntime, ...]: a sum of ntap
+    shifted frame views, trailing axes carried through."""
+    L = 2 * nchan
+    ntime = x.shape[0]
+    if ntime % L:
+        raise ValueError("ntime must be a multiple of 2*nchan")
+    nframe = ntime // L
+    nspec = nframe - (ntap - 1)
+    if nspec <= 0:
+        raise ValueError("not enough samples for one spectrum")
+    tail = tuple(x.shape[1:])
+    frames = x.reshape((nframe, L) + tail).to(torch.float64)
+    w = torch.as_tensor(window, dtype=torch.float32).to(x.device,
+                                                        torch.float64)
+    wshape = (1, L) + (1,) * len(tail)
+    fir = frames[0:nspec] * w[0].reshape(wshape)
+    for k in range(1, ntap):
+        fir += frames[k:k + nspec] * w[k].reshape(wshape)
+    return fir
+
+
+def pfb_channelize(x: torch.Tensor, window, nchan: int, ntap: int,
+                   fft_impl: str = "fft") -> torch.Tensor:
+    """Critically sampled real-input PFB: ADC [ntime, ...] with ntime ==
+    (nspec + ntap - 1) * 2 * nchan -> complex64 [nspec, nchan, ...], bins
+    0..nchan-1 of the real DFT of each FIR frame (the Nyquist bin
+    dropped).  FIR and transform in float64 (``torch.fft.rfft``) for both
+    ``fft_impl`` names, which the JAX function computes as an FFT or as
+    matrix products of the same transform."""
+    if fft_impl not in ("fft", "matmul"):
+        raise ValueError(f"unknown fft_impl {fft_impl!r}")
+    spec = torch.fft.rfft(_fir_frames(x, window, nchan, ntap), dim=1)
+    return spec[:, :nchan].to(torch.complex64)
+
+
+def pfb_channelize_planes(x: torch.Tensor, window, nchan: int, ntap: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pfb_channelize` as float32 (re, im) planes [nspec, nchan,
+    ...]."""
+    spec = torch.fft.rfft(_fir_frames(x, window, nchan, ntap),
+                          dim=1)[:, :nchan]
+    return spec.real.to(torch.float32), spec.imag.to(torch.float32)
+
+
+def _broadcast_scale(scale, ndim: int, device) -> torch.Tensor:
+    """Scalar or per-channel [nchan] requant gain, float32, broadcastable
+    over [..., nchan, ninput] spectra."""
+    s = torch.as_tensor(scale, dtype=torch.float32).to(device)
+    if s.dim() == 1:
+        return s.reshape((1,) * (ndim - 2) + (-1, 1))
+    return s
+
+
+def quantize_4bit_planes(re: torch.Tensor, im: torch.Tensor,
+                         scale=1.0) -> torch.Tensor:
+    """(re, im) float32 planes [..., nchan, ninput] -> packed uint8 of the
+    same shape: clip(round(v * scale), -8, 7) with ties to even, in
+    float32.  ``scale`` is a scalar or per-channel [nchan]."""
+    s = _broadcast_scale(scale, re.dim(), re.device)
+    return pack(quantize_nibbles(re.to(torch.float32) * s),
+                quantize_nibbles(im.to(torch.float32) * s))
+
+
+def quantize_4bit(z: torch.Tensor, scale=1.0) -> torch.Tensor:
+    """Complex voltages [..., nchan, ninput] -> packed 4+4-bit bytes
+    (:func:`quantize_4bit_planes` of the real and imaginary parts)."""
+    return quantize_4bit_planes(z.real, z.imag, scale)
 
 
 #: inputs per chunk of the float64 reference (bounds its FIR to ~0.5 GB

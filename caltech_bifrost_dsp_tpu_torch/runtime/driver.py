@@ -43,8 +43,20 @@ FX mode), the transient voltage recorder: a ``trigger`` command to the
 (:class:`..io.sink.TriggeredDump`, O_DIRECT with ``dump_direct``), which
 :class:`..io.source.TriggerFileSource` replays.
 
-Not ported yet: the stub-device timing mode (``stub_device_ms=``), which
-raises.
+With ``stub_device_ms`` the step is a stub that measures the host half
+alone (capture -> staging ring -> compute thread -> output thread;
+``scripts/bench_pipeline.py --stub-device``): each call sleeps
+``stub_device_ms * nspec / acc_len`` ms, for ``nspec`` spectra of packed
+bytes (of ADC in FX mode), and gives a zero int32 subselection [nchan /
+nchan_sum, nvis_out] on a dump, no power and no VLBI; a slow dump hands
+zero planes to the COR sinks.  The stub uploads nothing, launches no kernel
+and allocates no accumulator state, so it runs with ``device="cpu"`` on a
+host without a card; the staged spans go back to the ring after the sleep,
+never copied.  Its host memory is the staging ring (three fast windows:
+0.97 GB at the LWA-352 width, 1.9 GB with int8 ADC, 7.8 GB with float32
+ADC) and, from the first slow dump on, two [nchan, ninput, ninput] int32
+planes of zero pages (2 x 381 MB mapped, touched only by a sink that reads
+them).
 """
 
 from __future__ import annotations
@@ -410,12 +422,15 @@ class XEnginePipeline:
                  fx_mode: bool = False, quant_scale: float = 1.0,
                  eq_gains=None, mesh=None, dump_direct: bool = False,
                  stub_device_ms: float | None = None, device="cuda"):
-        if stub_device_ms is not None:
-            raise NotImplementedError("stub_device_ms= is not ported yet")
         if fx_mode and selftest:
             raise ValueError("selftest compares packed post-F input; "
                              "not applicable in FX mode")
+        if stub_device_ms is not None and selftest:
+            raise ValueError("the stub device computes no visibilities for "
+                             "the selftest to check")
         self.cfg = cfg
+        self.stub_device_ms = stub_device_ms
+        self._stub_slow = None
         self.device = torch.device(device)
         self.mesh = mesh
         if mesh is not None:
@@ -429,7 +444,8 @@ class XEnginePipeline:
             self.device = first
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda but no CUDA device is available")
-        self.cuda = self.device.type == "cuda"
+        # the stub never touches the card: no streams, no pinned buffers
+        self.cuda = self.device.type == "cuda" and stub_device_ms is None
         self.batch_accumulations = batch_accumulations
         # selftest: a (slow) numpy correlator alongside, every fast dump
         # compared exactly (the reference's Corr(test=True), corr_block.py:
@@ -518,7 +534,9 @@ class XEnginePipeline:
         # once-per-window psum (kept for the selftest)
         self._mesh_steps: dict = {}
         self._last_mesh_vis = None
-        if mesh is not None:
+        if stub_device_ms is not None:
+            self.state = None
+        elif mesh is not None:
             self.state = xengine.XEngineState(
                 *pmesh.zero_sharded_state(cfg, mesh))
         else:
@@ -702,9 +720,27 @@ class XEnginePipeline:
         for s in spans:
             self.staging.release_span(s)
 
+    def _stub_step(self, spans, is_dump):
+        """The stub device: a sleep in proportion to the spectra in
+        ``spans``, then zero products."""
+        cfg = self.cfg
+        per_spectrum = cfg.nchan * cfg.ninput * (
+            2 * self._adc_dtype.itemsize if self.fx_mode else 1)
+        nspec = sum(s.nbytes for s in spans) // per_spectrum
+        time.sleep(self.stub_device_ms * 1e-3 * nspec / cfg.acc_len)
+        self._release_spans(spans)
+        subsel = None
+        if is_dump:
+            shape = (cfg.nchan // cfg.nchan_sum, cfg.nvis_out)
+            subsel = Vis(torch.zeros(shape, dtype=torch.int32),
+                         torch.zeros(shape, dtype=torch.int32))
+        return xengine.XEngineOutputs(subsel, None, None)
+
     def _step(self, spans, gains_dev, is_first, is_dump, slow_first):
         """Upload ``spans`` and run one step call over them; the selftest
         correlator follows on the host copy."""
+        if self.stub_device_ms is not None:
+            return self._stub_step(spans, is_dump)
         self._cpu_held = None
         block, host = self._upload(spans)
         cfg = self.cfg
@@ -765,7 +801,16 @@ class XEnginePipeline:
 
     def _dense(self, which: str) -> Vis:
         """The full Hermitian matrix of the fast ("fast", valid after a
-        dump call) or slow ("slow") accumulator on the first device."""
+        dump call) or slow ("slow") accumulator on the first device; zero
+        planes of the host under the stub device."""
+        if self.state is None:
+            if self._stub_slow is None:
+                # np.zeros maps zero pages: nothing is written
+                shape = (self.cfg.nchan, self.cfg.ninput, self.cfg.ninput)
+                self._stub_slow = Vis(
+                    *(torch.from_numpy(np.zeros(shape, np.int32))
+                      for _ in range(2)))
+            return self._stub_slow
         if self.mesh is None:
             vis = (self.state.vis_fast if which == "fast"
                    else self.state.vis_slow)

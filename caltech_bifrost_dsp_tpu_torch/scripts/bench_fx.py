@@ -18,13 +18,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from ..config import LWA352
+from ..utils.roofline import card_fields, cuda_ms
 
 
 def _gen_adc(nadc: int, ninput: int, adc_dtype: str) -> np.ndarray:
@@ -35,29 +35,6 @@ def _gen_adc(nadc: int, ninput: int, adc_dtype: str) -> np.ndarray:
     if adc_dtype == "int8":
         return rng.integers(-90, 91, [nadc, ninput], dtype=np.int8)
     return rng.standard_normal([nadc, ninput], dtype=np.float32) * 3
-
-
-def card() -> str:
-    """``name, power.limit`` of the first GPU, as nvidia-smi prints it."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.splitlines()[0].strip()
-
-
-def cuda_ms(fn, niter: int) -> float:
-    """Mean device ms per call of ``fn`` over ``niter`` calls after one
-    warm-up call, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(niter):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / niter
 
 
 def bench_fengine(args, dev) -> dict:
@@ -161,8 +138,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     row = bench_fengine(args, dev) if args.fengine else bench_fx(args, dev)
-    name, limit = (x.strip() for x in card().split(",", 1))
-    row.update(device=name, power_limit=limit, adc_dtype=args.adc_dtype,
+    row.update(**card_fields(), adc_dtype=args.adc_dtype,
                pfb_precision=args.pfb_precision)
     print(json.dumps(row))
     return 0

@@ -10,11 +10,16 @@ also at a ragged shape, and the two that unpack their own tiles,
 ``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
 after the compiler's report of their registers and spills; the gather
 also timed alone, as a CUDA graph of bare launches, beside its wrapper),
-then drives nine paths of the port, each with the kernel launch counts
+then drives ten paths of the port, each with the kernel launch counts
 set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
-  0xdeadbeef), three fast windows at 192 channels and one at 184;
+  0xdeadbeef), three fast windows at 192 channels and one at 184, then the
+  first window through ``xengine_step`` with ``TPU_ENGINES`` in the padded
+  chan-major staging, as the JAX package's on-chip parity gate
+  (``scripts/tpu_parity.py``) runs it; with the FX path's checks this
+  path is the port's parity gate (the JAX gate's three windows at 184
+  channels are cut to one);
 - FX: :class:`XEngineRunner` in FX mode on int8 ADC, three windows and a
   slow dump at 192 channels, one at 184, one with float32 ADC (bytes equal
   to the int8 run's) and one tone window; per window the channelizer's
@@ -110,6 +115,19 @@ processes and the device ms of a dump call; every product must equal the
 single-process 2x2 mesh's on the same inputs byte for byte, in both
 processes.
 
+The tenth path, the measuring entry points, runs the port's five bench
+scripts through their ``main()`` at full width with short runs:
+``bench_step`` (5 windows; the end's ``xengine_step`` figure is its),
+``bench_pipeline`` on the card (with the ramp source and with
+``--skip-write``), with the stub device at that step time and
+``--skip-write``, and with the stub device fed by native capture at the
+wire path's pace, ``bench_stages`` (every stage), ``bench_ingest`` (20
+gulps, plain and with the upload) and ``bench_scaling`` (1x1, 1x2, 2x2
+on this card).  Each JSON line is printed and checked: its keys, finite
+and positive numbers, no stage over 1.05 of its bound, no kernel launched
+by a stub run, the X/B kernels launched by the step and the correlator by
+the driver on the card.
+
 Beside the four tensor-core kernels it times a library contraction as a
 yardstick, on earlier lines and labelled "contraction only":
 ``torch._int_mm`` on unpacked int8 planes beside the correlator, float32 and
@@ -130,10 +148,12 @@ failure raises and exits non-zero.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import faulthandler
 import filecmp
 import hashlib
+import io
 import json
 import math
 import multiprocessing
@@ -191,9 +211,16 @@ from caltech_bifrost_dsp_tpu_torch.parallel import multihost
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.ring import HistoryRing
 from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
-from caltech_bifrost_dsp_tpu_torch.scripts import (probe_subsel, upchan_bf,
+from caltech_bifrost_dsp_tpu_torch.scripts import (bench_ingest,
+                                                   bench_pipeline,
+                                                   bench_scaling,
+                                                   bench_stages, bench_step,
+                                                   probe_subsel, upchan_bf,
                                                    upchan_imag)
 from caltech_bifrost_dsp_tpu_torch.utils.codec import unpack_complex_np
+from caltech_bifrost_dsp_tpu_torch.utils.roofline import (
+    HBM_BYTES_S, PEAK_OPS_S, beamform_work, bound, card as card_name,
+    corr_work, cuda_ms, pfb_work, subsel_work)
 from caltech_bifrost_dsp_tpu_torch.verification import golden
 
 SEED = 0xdeadbeef
@@ -266,10 +293,6 @@ DEFAULT_CORR = "corr_acc_cached" if UNPACK_CACHE_DEFAULT else "corr_acc"
 #: why no kernel has a library time: no single PyTorch call computes its
 #: function on its inputs (4+4-bit packed bytes in, or a fused chain out)
 NO_LIBRARY = None
-#: the card's published peaks (H100 SXM data sheet, dense): memory rate,
-#: int8 and bf16 tensor-core rates, float32 rate outside the tensor cores
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 #: the FX operating point: int8 ADC, one slow dump after three windows
 FX_CFG = LWA352.replace(adc_dtype="int8", acc_len_slow=7200)
 FENGINE_NCHAN, FENGINE_NSPEC = 4096, 240
@@ -297,21 +320,6 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up,
-    from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def power_close(got, want) -> bool:
     """The reference's beam gate: rtol 1e-4, atol 1e-4 * max|truth|."""
     return bool(torch.allclose(got, want, rtol=1e-4,
@@ -320,40 +328,6 @@ def power_close(got, want) -> bool:
 
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
-
-
-def bound(nbyte: float, nop: float, kind: str) -> dict:
-    """The least time the card could take: every input read once and every
-    output written once over the memory rate, or the operations over the
-    peak rate of their type, whichever is larger."""
-    t_bytes = nbyte / HBM_BYTES_S * 1e3
-    t_ops = nop / PEAK_OPS_S[kind] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": NO_LIBRARY}
-
-
-def corr_bound(nchan: int, ntime: int, ni: int, tile: int,
-               nplane_read: int, nplane_written: int) -> dict:
-    """A correlator call: the packed block in, ``nplane_*`` int32 planes'
-    valid tiles (tile(j) >= tile(i)) in and out; 4 real multiply-adds per
-    time sample, channel and input pair i <= j on the int8 tensor cores."""
-    nt = -(-ni // tile)
-    valid = sum(min(tile, ni - a * tile) * min(tile, ni - b * tile)
-                for a in range(nt) for b in range(a, nt))
-    nbyte = nchan * ntime * ni + (nplane_read + nplane_written) * 4 * \
-        nchan * valid
-    return bound(nbyte, 8 * nchan * ntime * ni * (ni + 1) / 2, "int8")
-
-
-def pfb_bound(adc, nspec: int, nchan: int, ntap: int) -> dict:
-    """The channelizer: ADC in, packed bytes out; the FIR's 2 * ntap
-    operations per sample and a real FFT's 2.5 log2(L) (the least count
-    for the transform, whatever the kernel does) in float32."""
-    L, ni = 2 * nchan, adc.shape[1]
-    nbyte = adc.numel() * adc.element_size() + ni * nspec * nchan
-    return bound(nbyte, nspec * ni * L * (2 * ntap + 2.5 * math.log2(L)),
-                 "fp32")
 
 
 def phase_kernels(dev, card: str, results: dict) -> None:
@@ -396,7 +370,8 @@ def phase_kernels(dev, card: str, results: dict) -> None:
                                             False), 2)
     # flags (False, True, False): all four planes read and written
     results["corr_acc"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               **corr_bound(nchan, ntime, ni, 64, 4, 4))
+                               **bound(*corr_work(nchan, ntime, ni, 64, 4,
+                                                  4)))
     phase_cached(dev, card, results, packed, xc, upper, rand_planes,
                  plain_ms)
     int_mm_yardstick(card, packed)
@@ -457,7 +432,9 @@ def phase_kernels(dev, card: str, results: dict) -> None:
              + 4 * v.numel())
     nop = 8 * nchan * ntime * cfg.nbeam * ni
     results["beamform_products"].update(
-        **bound(nbyte, nop, "bf16"), max_abs_err=err,
+        **bound(*beamform_work(nchan, ntime, ni, cfg.nbeam,
+                               cfg.ntime_sum)),
+        max_abs_err=err,
         ms=cuda_ms(lambda: bf.beamform_products(packed, gains,
                                                 cfg.ntime_sum), 10),
         plain_ms=cuda_ms(lambda: bf.beamform_products_ref(
@@ -487,7 +464,7 @@ def phase_subsel(card: str, results: dict, vis: Vis, pairs, got,
     instantiation."""
     cfg = LWA352
     nchan_sum = cfg.nchan_sum
-    nvis, nco = pairs.shape[0], cfg.nchan // nchan_sum
+    nvis = pairs.shape[0]
     ptxas_report(card, {"subsel_gather_kernel": 5})
     out = Vis(torch.empty_like(got.real), torch.empty_like(got.imag))
     launch = probe_subsel.bare_launch(_build.library().cbd_subsel_gather,
@@ -498,8 +475,7 @@ def phase_subsel(card: str, results: dict, vis: Vis, pairs, got,
           "subsel: bare launches != plain")
     wrapper_ms, host_ms = probe_subsel.wrapper_ms(vis, pairs, nchan_sum)
     r = results["subsel_gather"]
-    r.update(**bound(8 * nvis * (cfg.nchan + nco + 1), 2 * nvis * cfg.nchan,
-                     "fp32"),
+    r.update(**bound(*subsel_work(nvis, cfg.nchan, nchan_sum)),
              max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
              ms=device_ms, wrapper_ms=wrapper_ms, wrapper_host_ms=host_ms,
              plain_ms=cuda_ms(lambda: cs.corr_subsel_ref(vis, pairs,
@@ -570,7 +546,7 @@ def phase_cached(dev, card, results, packed, xc, upper, rand_planes,
                                   unpack_cache=True), 5)
     results["corr_acc_cached"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **corr_bound(cfg.nchan, cfg.acc_len, cfg.ninput, 64, 4, 4))
+        **bound(*corr_work(cfg.nchan, cfg.acc_len, cfg.ninput, 64, 4, 4)))
 
 
 def int_mm_yardstick(card: str, packed, nchan: int = 4) -> None:
@@ -730,6 +706,42 @@ def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
           and np.array_equal(si, slow_plain.imag.cpu().numpy()),
           f"{cfg.nchan}c: slow dump vs plain")
     print(f"[{cfg.nchan}c] slow dump after {nwin} windows: exact", flush=True)
+
+
+def run_cti_window(dev, block: np.ndarray, gains_np) -> None:
+    """One golden window through ``xengine_step`` with ``TPU_ENGINES`` in
+    the padded chan-major staging (``layout="cti"``, 768 lanes, the pad
+    lanes 0x88), the program the JAX package's on-chip parity gate
+    (``scripts/tpu_parity.py``) runs: fast, slow and subselection exact and
+    VLBI exact against the plain versions on the same bytes, power within
+    rtol 1e-4."""
+    cfg = DRIVER_CFG.replace(**TPU_ENGINES)
+    ni = cfg.ninput
+    packed = torch.from_numpy(block.reshape(cfg.acc_len, cfg.nchan,
+                                            ni)).to(dev)
+    staged = torch.full((cfg.nchan, cfg.acc_len, 768), 0x88,
+                        dtype=torch.uint8, device=dev)
+    staged[:, :, :ni] = packed.permute(1, 0, 2)
+    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
+    pairs = torch.from_numpy(PAIRS).to(dev)
+    state, out = xengine_step(init_state(cfg, dev), staged, gains, pairs,
+                              True, True, True, cfg, layout="cti")
+    xc = chan_major(packed, "tci")
+    plain = correlate_chan_major(xc)
+    for which, vis in (("fast", state.vis_fast), ("slow", state.vis_slow)):
+        got = dense_vis(vis, cfg)
+        check(torch.equal(got.real, plain.real)
+              and torch.equal(got.imag, plain.imag),
+              f"[cti] {which} dump vs plain")
+    want = cs.corr_subsel_ref(plain, pairs, cfg.nchan_sum)
+    check(torch.equal(out.subsel.real, want.real)
+          and torch.equal(out.subsel.imag, want.imag), "[cti] subsel vs plain")
+    wp, wv = bf.beamform_products_ref(xc, gains, cfg.ntime_sum)
+    check(torch.equal(out.vlbi, wv), "[cti] VLBI not exact")
+    check(power_close(out.bf_power, wp), "[cti] beam power vs plain")
+    print("[cti] one golden window, TPU_ENGINES, padded chan-major staging "
+          "(pad lanes 0x88): fast, slow, subsel, VLBI exact; power within "
+          "rtol 1e-4", flush=True)
 
 
 def zero_counts() -> None:
@@ -967,7 +979,8 @@ def run_fengine(dev, card: str, results: dict) -> dict:
         adc, window, FENGINE_NCHAN, ntap, qs), 1)
     results["pfb_factored"].update(
         max_abs_err=1.0 if ntol else 0.0, ms=ms, plain_ms=plain_ms,
-        **pfb_bound(adc, FENGINE_NSPEC, FENGINE_NCHAN, ntap))
+        **bound(*pfb_work(adc.numel() * adc.element_size(), adc.shape[1],
+                          FENGINE_NSPEC, FENGINE_NCHAN, ntap)))
     msps = FENGINE_NSPEC * L / (ms * 1e-3) / 1e6
     print(f"[{card}] pfb_factored at {FENGINE_NCHAN} channels x "
           f"{cfg.ninput} inputs x {FENGINE_NSPEC} spectra: kernel {ms:.3f} "
@@ -1006,7 +1019,8 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
                      what=f"pfb_direct {what}")
         ntol += 0 if fast else n
     results["pfb_direct"].update(
-        **pfb_bound(adc, cfg.acc_len, cfg.nchan, ntap),
+        **bound(*pfb_work(adc.numel() * adc.element_size(), adc.shape[1],
+                          cfg.acc_len, cfg.nchan, ntap)),
         max_abs_err=1.0 if ntol else 0.0,
         ms=cuda_ms(lambda: pfb_fused.pfb_direct(adc, window, cfg.nchan, ntap,
                                                 qs), 5),
@@ -1110,7 +1124,7 @@ def phase_gulp(dev, card: str, results: dict, name: str, fn, ref,
             results[name].update(
                 ms=cuda_ms(lambda: fn(packed, layout, ni), 5),
                 plain_ms=cuda_ms(lambda: ref(xc), 2),
-                **corr_bound(nchan, ntime, ni, tile_size, 0, 2))
+                **bound(*corr_work(nchan, ntime, ni, tile_size, 0, 2)))
             if name in ("corr_triu", "corr_rows"):
                 # one call per gulp, as the driver's pallas_triu step and
                 # the schedules run call them
@@ -3448,6 +3462,175 @@ def run_multihost_path(dev, card: str, block: np.ndarray, gains_np,
     return total
 
 
+#: the tenth path's pace for the capture runs, Gb/s: what the wire path
+#: offers over the card's host's loopback
+BENCH_WIRE_GBPS = WIRE_GBPS[0]
+#: the bench scripts' JSON keys, as the JAX scripts print them
+PIPELINE_KEYS = {"metric", "value", "unit", "vs_baseline", "gulps",
+                 "partial", "compute_thread", "device", "power_limit"}
+STAGE_KEYS = {"stage", "measured_ms", "roofline_ms", "binding",
+              "sol_fraction"}
+
+
+def bench_json(module, argv: list, label: str) -> dict:
+    """``module.main(argv)`` with its standard output caught: its JSON line,
+    printed on a line of its own; a non-zero exit fails the path."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and bool(lines), f"[bench] {label} exited {rc}")
+    row = json.loads(lines[-1])
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_numbers(row: dict, keys, label: str, positive=True) -> None:
+    """Every value under ``keys`` a finite number (and positive)."""
+    for k in keys:
+        v = row[k]
+        check(isinstance(v, (int, float)) and not isinstance(v, bool)
+              and math.isfinite(v) and (v > 0 or not positive),
+              f"[bench] {label}: {k} = {v!r}")
+
+
+def bench_launches(module, argv: list, label: str, total: dict) -> tuple:
+    """:func:`bench_json` with the launch counts set to 0 just before and
+    read just after; they add to ``total``."""
+    zero_counts()
+    row = bench_json(module, argv, label)
+    counts = read_counts()
+    for name in KERNELS:
+        total[name] += counts[name]
+    return row, counts
+
+
+def run_bench_path(card: str) -> tuple[dict, dict]:
+    """The tenth path: the port's five bench scripts through their
+    ``main()`` at the full LWA-352 width, short runs, each JSON line printed
+    and checked: ``bench_step`` (5 windows); ``bench_pipeline`` on the card
+    (the least run, four fast windows), with the stub device at the step's
+    measured ms and ``--skip-write``, and with the stub device fed by native
+    capture at the wire path's pace (and on the card once more with
+    ``--skip-write``, without the source's cost); ``bench_stages`` (every
+    stage, no
+    ``sol_fraction`` over 1.05); ``bench_ingest`` (20 gulps at that pace,
+    plain and with the upload); ``bench_scaling`` (1x1, 1x2, 2x2 on this
+    card).  Returns (launches over the path, bench_step's row)."""
+    total = {name: 0 for name in KERNELS}
+    walls = {}
+    t0 = time.perf_counter()
+    step, counts = bench_launches(bench_step, ["--windows", "5"],
+                                  "bench_step", total)
+    check({"metric", "value", "unit", "vs_baseline", "ms_per_window",
+           "device", "power_limit"} <= set(step), "[bench] bench_step keys")
+    check_numbers(step, ("value", "vs_baseline", "ms_per_window"),
+                  "bench_step")
+    for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
+        check(counts[name] > 0, f"[bench] bench_step launched no {name}")
+    walls["step"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    dev_run, counts = bench_launches(bench_pipeline, ["--seconds", "0"],
+                                     "bench_pipeline on the card", total)
+    check(counts[DEFAULT_CORR] > 0,
+          f"[bench] bench_pipeline on the card launched no {DEFAULT_CORR}")
+    # the same without the source's generation cost: H2D and the step
+    dev_zero, counts = bench_launches(
+        bench_pipeline, ["--seconds", "0", "--skip-write"],
+        "bench_pipeline on the card --skip-write", total)
+    check(counts[DEFAULT_CORR] > 0, f"[bench] bench_pipeline on the card "
+          f"--skip-write launched no {DEFAULT_CORR}")
+    stub, counts = bench_launches(
+        bench_pipeline, ["--stub-device", f"{step['ms_per_window']:.3f}",
+                         "--skip-write", "--seconds", "5"],
+        "bench_pipeline --stub-device --skip-write", total)
+    check(not any(counts.values()),
+          f"[bench] the stub run launched kernels: {counts}")
+    delay_ns = int(16 * LWA352.nchan * LWA352.ninput * 8 / BENCH_WIRE_GBPS)
+    udp, counts = bench_launches(
+        bench_pipeline, ["--stub-device", f"{step['ms_per_window']:.3f}",
+                         "--udp", "--delay-ns", str(delay_ns), "--seconds",
+                         "0", "--port", str(free_port())],
+        "bench_pipeline --stub-device --udp", total)
+    check(not any(counts.values()),
+          f"[bench] the stub capture run launched kernels: {counts}")
+    for row, label in ((dev_run, "on the card"),
+                       (dev_zero, "on the card, skip-write"), (stub, "stub"),
+                       (udp, "stub over UDP")):
+        check(PIPELINE_KEYS <= set(row), f"[bench] bench_pipeline {label} "
+              f"keys {sorted(row)}")
+        check_numbers(row, ("value", "vs_baseline", "gulps"),
+                      f"bench_pipeline {label}")
+        check_numbers(row["compute_thread"], ("acquire_s", "reserve_s",
+                                              "process_s"),
+                      f"bench_pipeline {label}", positive=False)
+    check(not (dev_run["partial"] or dev_zero["partial"] or stub["partial"]),
+          "[bench] a bench_pipeline run without capture was partial")
+    check({"npkt", "nmissing", "loss_fraction"} == set(udp["capture"]),
+          "[bench] bench_pipeline --udp capture keys")
+    check_numbers(udp["capture"], ("loss_fraction", "nmissing"),
+                  "bench_pipeline --udp", positive=False)
+    print(f"[{card}] bench_pipeline, no sinks (no beams, no subselection): "
+          f"on the card {dev_run['value']:.3f} Gb/s over "
+          f"{dev_run['gulps']} gulps ({dev_zero['value']:.3f} with the "
+          f"source's zeros, no generation cost); host half alone (stub device "
+          f"{step['ms_per_window']:.3f} ms a window, skip-write) "
+          f"{stub['value']:.3f} Gb/s; fed by native capture at "
+          f"{BENCH_WIRE_GBPS} Gb/s offered {udp['value']:.3f} Gb/s, partial "
+          f"{udp['partial']}, loss {udp['capture']['loss_fraction']:.3e} "
+          f"({udp['capture']['nmissing']} packets missing)", flush=True)
+    walls["pipeline"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    stages, _ = bench_launches(bench_stages, [],
+                               "bench_stages", total)
+    names = [r["stage"] for r in stages["stages"]]
+    check(len(names) == 11 and len(set(names)) == 11,
+          f"[bench] bench_stages ran {names}")
+    for r in stages["stages"]:
+        check(STAGE_KEYS <= set(r), f"[bench] stage keys {sorted(r)}")
+        check_numbers(r, ("measured_ms", "roofline_ms", "sol_fraction"),
+                      r["stage"])
+        check(r["sol_fraction"] <= 1.05, f"[bench] {r['stage']} at "
+              f"{r['sol_fraction']:.3f} of its bound: the model or the "
+              f"timing is wrong")
+        check(r["binding"] in ("bytes", "int8", "bf16", "fp64", "fp32"),
+              f"[bench] {r['stage']} binding {r['binding']}")
+    walls["stages"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    for argv, label in (([], "bench_ingest"), (["--h2d"],
+                                               "bench_ingest --h2d")):
+        row, _ = bench_launches(bench_ingest, [
+            "--ngulp", "20", "--delay-ns", str(delay_ns), "--port",
+            str(free_port())] + argv, label, total)
+        check_numbers(row, ("value", "vs_baseline", "gulps"), label)
+        check_numbers(row, ("loss_fraction",), label, positive=False)
+        print(f"[{card}] {label}: {row['value']:.3f} Gb/s over "
+              f"{row['gulps']} gulps at {BENCH_WIRE_GBPS} Gb/s offered, loss "
+              f"{row['loss_fraction']:.3e}", flush=True)
+    walls["ingest"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    sc, _ = bench_launches(bench_scaling, [
+        "--production", "--meshes", "1x1,1x2,2x2", "--niter", "2"],
+        "bench_scaling", total)
+    check(sorted(sc["devices"]) == ["1x1", "1x2", "2x2"] and sc["cards"] == 1,
+          f"[bench] bench_scaling meshes {sorted(sc['devices'])}, cards "
+          f"{sc['cards']}")
+    for key in ("per_chip_efficiency", "constant_compute_efficiency"):
+        check_numbers(sc[key], sorted(sc[key]), f"bench_scaling {key}")
+    for key, row in sc["devices"].items():
+        check_numbers(row, ("sec_per_window", "msamples_per_s"),
+                      f"bench_scaling {key}")
+    walls["scaling"] = time.perf_counter() - t1
+    print(f"[{card}] bench path launches: {total}; wall by part: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()),
+          flush=True)
+    return total, step
+
+
 def timed(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall time into ``walls[name]``."""
     t0 = time.perf_counter()
@@ -3463,10 +3646,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.splitlines()[0].strip()
+    card = card_name()
     print(card, flush=True)
     print(torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0), flush=True)
@@ -3491,6 +3671,7 @@ def main() -> int:
     cfg184 = LWA352.replace(nchan=184, acc_len_slow=2400)
     run_geometry(dev, cfg184, golden_windows(cfg184, 1),
                  [g[:184] for g in gains_np], window_s)
+    run_cti_window(dev, blocks[0], gains_np)
     walls["X/B"] = time.perf_counter() - t1
     xb = read_counts()
     for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
@@ -3526,10 +3707,12 @@ def main() -> int:
     mh = timed(walls, "multihost", run_multihost_path, dev, card,
                blocks[0], gains_np, qs, mesh_ms)
     del blocks
+    # path 10, the measuring entry points: the five bench scripts
+    be, step = timed(walls, "bench", run_bench_path, card)
     launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
                 + wi[name] + sc[name] + rc[name] + of[name] + mh[name]
-                for name in KERNELS}
-    print(f"kernel launches over the nine paths and the schedules run: "
+                + be[name] for name in KERNELS}
+    print(f"kernel launches over the ten paths and the schedules run: "
           f"{launches}", flush=True)
 
     t1 = time.perf_counter()
@@ -3540,13 +3723,11 @@ def main() -> int:
                            generator=g, device=dev, dtype=torch.uint8)
     gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
     pairs = torch.from_numpy(PAIRS).to(dev)
-    step_ms = cuda_ms(lambda: xengine_step(state, packed, gains, pairs, True,
-                                           True, False, cfg), 5)
-    gbps = cfg.gulp_nbyte * (cfg.acc_len // cfg.ntime_gulp) * 8 / (
-        step_ms * 1e-3) / 1e9
+    step_ms = step["ms_per_window"]
     print(f"[{card}] xengine_step, one 2400-spectra window at 704 inputs x "
-          f"192 channels: {step_ms:.3f} ms per window ({gbps:.1f} Gb/s of "
-          f"packed input; the real-time bar is {cfg.input_gbps:.1f} Gb/s)",
+          f"192 channels (scripts/bench_step.py, {step['windows']} windows): "
+          f"{step_ms:.3f} ms per window ({step['value']:.1f} Gb/s of packed "
+          f"input; the real-time bar is {cfg.input_gbps:.1f} Gb/s)",
           flush=True)
     tcfg = cfg.replace(**DRIVER_ENGINES["pallas_triu"])
     triu_ms = cuda_ms(lambda: xengine_step(state, packed, gains, pairs, True,
@@ -3589,7 +3770,8 @@ def main() -> int:
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],
                 **{k: spec[k] for k in ("also_replaces",) if k in spec},
-                "launches": launches[name], **results[name],
+                "launches": launches[name], "library_ms": NO_LIBRARY,
+                **results[name],
                 "tolerance": spec["tolerance"]}
                for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,8 @@ exits 2).
 import dataclasses
 import json
 import threading
+import time
+import types
 
 import numpy as np
 import pytest
@@ -304,29 +306,85 @@ def test_per_gulp_mode_equals_batched():
     assert sorted(runs[0].pb) == sorted(runs[1].pb)
 
 
-@pytest.mark.parametrize("arg", ["mesh", "stub_device_ms", "history_nbyte",
-                                 "dump_direct"])
+@pytest.mark.parametrize("arg", ["mesh", "history_nbyte", "dump_direct"])
 def test_unported_driver_options_raise(arg):
-    """What the driver still refuses.  ``mesh=`` is ported
+    """What the driver refuses.  ``mesh=`` is ported
     (tests/test_torch_mesh_driver.py): a mesh on another device type than
-    ``device`` raises.  ``stub_device_ms=`` is not ported.  The history
-    ring is ported (tests/test_torch_trigger.py): a ring smaller than one
-    frame raises, with or without ``dump_direct``, as in the JAX driver."""
+    ``device`` raises.  The history ring is ported
+    (tests/test_torch_trigger.py): a ring smaller than one frame raises,
+    with or without ``dump_direct``, as in the JAX driver.  The stub device
+    (``stub_device_ms=``) is ported: ``test_stub_device_matches_jax``."""
     from caltech_bifrost_dsp_tpu_torch.parallel.mesh import make_mesh
 
     kwargs = {"mesh": {"mesh": make_mesh(1, 1, devices=["cpu"])},
-              "stub_device_ms": {"stub_device_ms": 1.0},
               "history_nbyte": {"history_nbyte": 1},
               "dump_direct": {"dump_direct": True,
                               "history_nbyte": PCFG.gulp_nbyte - 1}}[arg]
     device = "cuda" if arg == "mesh" else "cpu"
-    error = NotImplementedError if arg == "stub_device_ms" else ValueError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         XEnginePipeline(PCFG, source.SyntheticSource(PCFG), device=device,
                         **kwargs)
     if arg in ("history_nbyte", "dump_direct"):
         with pytest.raises(ValueError):
             JPipe(CFG, jsource.DummySource(CFG), **kwargs)
+
+
+@pytest.mark.parametrize("fx", [False, True], ids=["xb", "fx"])
+def test_stub_device_matches_jax(fx, monkeypatch):
+    """``stub_device_ms=``: both drivers on the CPU with every sink give the
+    same dumps and the same packets (a zero subselection on each fast dump,
+    zero COR planes on each slow dump, no beams); the port's stub sleeps
+    ``stub_device_ms`` a whole window (in FX mode too, the spectra counted
+    in ADC), runs no step, allocates no accumulator state and lets no
+    kernel wrapper count a launch."""
+    from caltech_bifrost_dsp_tpu_torch.models import xengine as txe
+    from caltech_bifrost_dsp_tpu_torch.ops import beamform as tbf
+    from caltech_bifrost_dsp_tpu_torch.ops import corr_acc as tca
+    from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as tcs
+    from caltech_bifrost_dsp_tpu_torch.runtime import driver as tdriver
+
+    def no_step(*a, **k):
+        raise AssertionError("the stub device ran a step")
+
+    monkeypatch.setattr(txe, "xengine_step", no_step)
+    monkeypatch.setattr(txe, "fx_step", no_step)
+    sleeps = []
+    monkeypatch.setattr(tdriver, "time", types.SimpleNamespace(
+        sleep=sleeps.append, perf_counter=time.perf_counter))
+    counters = [(tca.corr_acc, "launches"), (tca.corr_acc, "cached_launches"),
+                (tbf.beamform_products, "launches"),
+                (tcs.corr_subsel, "launches")]
+    before = [getattr(f, c) for f, c in counters]
+    if fx:
+        cfg = FX_CFG
+        srcs = (jsource.ADCSource(cfg, amplitude=32.0, seed=21),
+                source.ADCSource(port_cfg(cfg), amplitude=32.0, seed=21))
+    else:
+        cfg = CFG
+        srcs = (jsource.DummySource(cfg, mode="ramp"),
+                source.SyntheticSource(PCFG, mode="ramp"))
+    (jp, _, jgot), (pp, _, pgot) = make_pipes(cfg, *srcs, fx_mode=fx,
+                                              stub_device_ms=2.5)
+    assert pp.state is None
+    ngulp = 2 * cfg.acc_len_slow // cfg.ntime_gulp
+    jp.run(ngulp, timeout_s=300)
+    pp.run(ngulp, timeout_s=300)
+    assert (pp.ndump_fast, pp.ndump_slow) == (jp.ndump_fast, jp.ndump_slow)
+    assert pp.ndump_slow == 2
+    assert sleeps == [2.5e-3] * pp.ndump_fast
+    # the compute thread's perf split counts the same processed bytes
+    assert pp.perf_compute.nbyte == jp.perf_compute.nbyte > 0
+    assert pgot.sub and not pgot.pb and not pgot.ib
+    for p in pgot.sub:
+        assert not pk.decode_corr_part(p)[2].any()
+    assert_same_packets(jgot, pgot)
+    assert [getattr(f, c) for f, c in counters] == before
+
+
+def test_stub_device_refuses_the_selftest():
+    with pytest.raises(ValueError):
+        XEnginePipeline(PCFG, source.SyntheticSource(PCFG), device="cpu",
+                        stub_device_ms=1.0, selftest=True)
 
 
 def test_stage_failure_is_raised_by_run():

@@ -1,10 +1,11 @@
 """The port, its CLI, the operator scripts, the offline, receiver and
-golden CLIs, the FX bench, the multi-process mesh and its test worker and
-``chip_smoke.py`` import without JAX and
+golden CLIs, the benches and ``utils/roofline.py``, the multi-process mesh
+and its test worker and ``chip_smoke.py`` import without JAX and
 without any module of the JAX package (and without ``grpc``, which only an
 etcd store needs; the offline CLIs replay without ``h5py``, which only
 their writers need), an ``XEnginePipeline`` runs on the CPU (unsharded and
-on a 2x2 mesh) in such a process, the port's native loader builds and
+on a 2x2 mesh, and with the stub device) in such a process, the port's
+native loader builds and
 loads its own library and leaves the JAX package's
 ``native/libcbd_native.so`` as it was, and the CLI and the bench refuse to
 run on a host without a card."""
@@ -53,6 +54,11 @@ import caltech_bifrost_dsp_tpu_torch.runtime.runner
 import caltech_bifrost_dsp_tpu_torch.scripts.arm_correlator
 import caltech_bifrost_dsp_tpu_torch.scripts.beam_rx
 import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
+import caltech_bifrost_dsp_tpu_torch.scripts.bench_ingest
+import caltech_bifrost_dsp_tpu_torch.scripts.bench_pipeline
+import caltech_bifrost_dsp_tpu_torch.scripts.bench_scaling
+import caltech_bifrost_dsp_tpu_torch.scripts.bench_stages
+import caltech_bifrost_dsp_tpu_torch.scripts.bench_step
 import caltech_bifrost_dsp_tpu_torch.scripts.check_golden
 import caltech_bifrost_dsp_tpu_torch.scripts.corr_part_rx
 import caltech_bifrost_dsp_tpu_torch.scripts.corr_rx
@@ -65,6 +71,7 @@ import caltech_bifrost_dsp_tpu_torch.scripts.upchan_bf
 import caltech_bifrost_dsp_tpu_torch.scripts.upchan_imag
 import caltech_bifrost_dsp_tpu_torch.scripts.xeng_manager
 import caltech_bifrost_dsp_tpu_torch.utils.proclog
+import caltech_bifrost_dsp_tpu_torch.utils.roofline
 import caltech_bifrost_dsp_tpu_torch.utils.skycoords
 import caltech_bifrost_dsp_tpu_torch.utils.timeutils
 import chip_smoke
@@ -92,6 +99,11 @@ mpipe = XEnginePipeline(cfg, SyntheticSource(cfg, mode="random"),
                         mesh=make_mesh(2, 2, devices=["cpu"] * 4))
 mpipe.run(20, timeout_s=60)
 assert mpkts == pkts
+spipe = XEnginePipeline(cfg, SyntheticSource(cfg, skip_write=True),
+                        subsel_outputs=[CorrPartOutput(cfg, send=[].append)],
+                        device="cpu", stub_device_ms=0.1)
+spipe.run(20, timeout_s=60)
+assert spipe.ndump_fast == 4 and spipe.state is None
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "jaxlib")
 assert not bad, bad
