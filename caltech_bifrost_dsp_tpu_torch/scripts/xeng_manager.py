@@ -23,7 +23,7 @@ from ..control.manager import XengineController, XengineManagerService
 from ..control.store import connect
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="X-engine host manager (PyTorch + CUDA port)")
     p.add_argument("--etcdhost", type=str, default=None)
     p.add_argument("--pidfile-dir", type=str, default="/tmp")
@@ -38,7 +38,11 @@ def main(argv=None) -> int:
                         "control plane then speaks the genuine etcd v3 "
                         "wire format, usable by stock etcd clients, "
                         "without an etcd binary")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     kv_server = None
     if args.serve_kv:

@@ -10,7 +10,7 @@ also at a ragged shape, and the two that unpack their own tiles,
 ``corr_triu`` and ``corr_rows``, also on structured and all-0x88 blocks,
 after the compiler's report of their registers and spills; the gather
 also timed alone, as a CUDA graph of bare launches, beside its wrapper),
-then drives ten paths of the port, each with the kernel launch counts
+then drives eleven paths of the port, each with the kernel launch counts
 set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
@@ -128,6 +128,21 @@ and positive numbers, no stage over 1.05 of its bound, no kernel launched
 by a stub run, the X/B kernels launched by the step and the correlator by
 the driver on the card.
 
+The eleventh path, the soak, follows: ``scripts/soak.py``'s full leg at
+the full LWA-352 width, cut to ``SOAK_SECONDS`` at ``SOAK_RATE`` gulps a
+second with slow dumps of ``SOAK_ACC_LEN_SLOW`` spectra:
+``native.CaptureSource`` fed by a blaster process cycling five seeded
+gulps, every sink live over loopback UDP to a receiver process per
+stream, the 1000-gulp sequence break half way, a dump triggered through
+the control client and replayed, the monitor bridge; every fast window's
+subselection (decoded from its packets) and every slow dump exact against
+the plain correlator's truth on both sides of the break, RSS and
+``memory_reserved`` within their gates; then ``examples/demo_torch.py``
+on the card, every slow dump equal to its golden file.  The soak's
+launches are counted from the end of its warm-up pipeline to the end of
+its paced run, and each X/B kernel must be among them; the demo's are
+counted around the demo.
+
 Beside the four tensor-core kernels it times a library contraction as a
 yardstick, on earlier lines and labelled "contraction only":
 ``torch._int_mm`` on unpacked int8 planes beside the correlator, float32 and
@@ -153,6 +168,7 @@ import ctypes
 import faulthandler
 import filecmp
 import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -162,7 +178,6 @@ import re
 import shutil
 import signal
 import socket
-import struct
 import subprocess
 import sys
 import tempfile
@@ -215,8 +230,9 @@ from caltech_bifrost_dsp_tpu_torch.scripts import (bench_ingest,
                                                    bench_pipeline,
                                                    bench_scaling,
                                                    bench_stages, bench_step,
-                                                   probe_subsel, upchan_bf,
-                                                   upchan_imag)
+                                                   probe_subsel, soak,
+                                                   soak_wire,
+                                                   upchan_bf, upchan_imag)
 from caltech_bifrost_dsp_tpu_torch.utils.codec import unpack_complex_np
 from caltech_bifrost_dsp_tpu_torch.utils.roofline import (
     HBM_BYTES_S, PEAK_OPS_S, beamform_work, bound, card as card_name,
@@ -1498,72 +1514,32 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-class _IoVec(ctypes.Structure):
-    _fields_ = [("base", ctypes.c_void_p), ("len", ctypes.c_size_t)]
-
-
-class _MsgHdr(ctypes.Structure):
-    _fields_ = [("name", ctypes.c_void_p), ("namelen", ctypes.c_uint32),
-                ("iov", ctypes.POINTER(_IoVec)), ("iovlen", ctypes.c_size_t),
-                ("control", ctypes.c_void_p), ("controllen", ctypes.c_size_t),
-                ("flags", ctypes.c_int)]
-
-
-class _MMsgHdr(ctypes.Structure):
-    _fields_ = [("hdr", _MsgHdr), ("len", ctypes.c_uint)]
-
-
 def _receive_cor(conn, shm_name: str, expected: int, size: int) -> None:
     """In a process of its own: bind a loopback UDP socket with as large a
     receive buffer as the host allows, report (port, buffer bytes), read
     datagrams of up to ``size`` bytes straight into the shared memory
-    ``shm_name`` with ``recvmmsg`` (up to 256 a call; a kernel timeout of
-    5 s once the first has come, 120 s before) until ``expected`` arrived
-    or the stream stops, and send back their lengths.  The bytes stay in
-    the shared memory: a pipe carries a slow dump's 383 MB slowly under
-    gVisor."""
-    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-    want = 1 << 30
-    try:
-        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUFFORCE, want)
-    except (AttributeError, PermissionError):
-        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, want)
-    sock.bind(("127.0.0.1", 0))
-
-    def kernel_timeout(seconds: int) -> None:
-        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVTIMEO,
-                        struct.pack("ll", seconds, 0))
-
+    ``shm_name`` with ``recvmmsg`` (``soak_wire.MMsgVec``, up to 256 a
+    call; a kernel timeout of 5 s once the first has come, 120 s before)
+    until ``expected`` arrived or the stream stops, and send back their
+    lengths.  The bytes stay in the shared memory: a pipe carries a slow
+    dump's 383 MB slowly under gVisor."""
+    sock = soak_wire.bind_loopback(120.0)
     shm = shared_memory.SharedMemory(name=shm_name)
     buf = (ctypes.c_char * (expected * size)).from_buffer(shm.buf)
     try:
-        iovs = (_IoVec * expected)()
-        msgs = (_MMsgHdr * expected)()
-        base = ctypes.addressof(buf)
-        for k in range(expected):
-            iovs[k].base, iovs[k].len = base + k * size, size
-            msgs[k].hdr.iov = ctypes.pointer(iovs[k])
-            msgs[k].hdr.iovlen = 1
-        libc = ctypes.CDLL(None, use_errno=True)
-        libc.recvmmsg.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_uint, ctypes.c_int,
-                                  ctypes.c_void_p]
-        kernel_timeout(120)
+        msgs = soak_wire.MMsgVec(ctypes.addressof(buf), expected, size)
         conn.send((sock.getsockname()[1],
                    sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)))
         got = 0
         while got < expected:
-            n = libc.recvmmsg(sock.fileno(),
-                              ctypes.addressof(msgs) + got * ctypes.sizeof(
-                                  _MMsgHdr), min(256, expected - got), 0,
-                              None)
+            n = msgs.recv(sock, got, min(256, expected - got))
             if n <= 0:  # the kernel timeout: the stream has stopped
                 break
             if got == 0:
-                kernel_timeout(5)
+                soak_wire.set_timeout(sock, 5.0)
             got += n
         sock.close()
-        conn.send([msgs[k].len for k in range(got)])
+        conn.send([msgs.length(k) for k in range(got)])
     finally:
         del buf
         shm.close()
@@ -1608,39 +1584,14 @@ def cor_packet_size(cfg) -> int:
     return 32 + 8 * cfg.npol * cfg.npol * cfg.nchan
 
 
-def _blast(conn, shm_name: str, shape: tuple, ntime_gulp: int, port: int,
-           nchan_per_pkt: int, delay_ns: int) -> None:
-    """In a process of its own: the frames in shared memory as snap2
-    packets, one ``native.transmit_gulp`` per gulp (sequence numbers 0,
-    ntime_gulp, ...), then the last gulp twice more with the next sequence
-    numbers, which releases a last gulp with a lost packet.  Sends back
-    (packets sent, seconds of sending)."""
-    shm = shared_memory.SharedMemory(name=shm_name)
-    try:
-        frames = np.ndarray(shape, np.uint8, buffer=shm.buf)
-        ngulp = shape[0] // ntime_gulp
-        native.load()
-        conn.send("ready")
-        conn.recv()
-        sent, t0 = 0, time.perf_counter()
-        for k in range(ngulp + 2):
-            g = min(k, ngulp - 1)
-            sent += native.transmit_gulp(
-                "127.0.0.1", port, frames[g * ntime_gulp:(g + 1) * ntime_gulp],
-                seq0=k * ntime_gulp, nchan_per_pkt=nchan_per_pkt,
-                npol_per_pkt=shape[2], delay_ns=delay_ns)
-        conn.send((sent, time.perf_counter() - t0))
-        del frames
-    finally:
-        shm.close()
-
-
 class Capture:
     """A capture source (``native.CaptureSource`` or ``AdcCaptureSource``)
-    on a free loopback port, fed by :func:`_blast` in a spawned process
-    from ``frames`` [ngulp * ntime_gulp, nchan, ninput] uint8 in shared
-    memory, paced to ``gbps`` of offered payload: the blaster sleeps every
-    16 rows of chan-block packets, 16 time samples of the gulp."""
+    on a free loopback port, fed by ``soak_wire.blast`` in a spawned
+    process from ``frames`` [ngulp * ntime_gulp, nchan, ninput] uint8 in
+    shared memory, gulps back to back (sequence numbers 0, ntime_gulp,
+    ..., then two more that release the last), paced to ``gbps`` of
+    offered payload: the blaster sleeps every 16 rows of chan-block
+    packets, 16 time samples of the gulp."""
 
     def __init__(self, cfg, frames: np.ndarray, gbps: float,
                  adc: bool = False, nchan_per_pkt: int = 8):
@@ -1656,9 +1607,10 @@ class Capture:
         np.ndarray(frames.shape, np.uint8, buffer=self.shm.buf)[...] = frames
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe()
-        self.proc = ctx.Process(target=_blast, daemon=True, args=(
-            child, self.shm.name, frames.shape, cfg.ntime_gulp, port,
-            nchan_per_pkt, self.delay_ns))
+        shape = (ngulp, cfg.ntime_gulp) + frames.shape[1:]
+        self.proc = ctx.Process(target=soak_wire.blast, daemon=True, args=(
+            child, self.shm.name, shape, port, nchan_per_pkt,
+            frames.shape[2], self.delay_ns, None, ngulp))
         self.proc.start()
         check(self.conn.poll(120) and self.conn.recv() == "ready",
               "blaster did not start")
@@ -3631,6 +3583,87 @@ def run_bench_path(card: str) -> tuple[dict, dict]:
     return total, step
 
 
+#: the eleventh path: the soak's full leg cut to fit the smoke, seconds
+#: asked, gulps a second (1.04 Gb/s) and slow dumps of two fast windows;
+#: segment B still runs past the recovery margins (95 gulps)
+SOAK_SECONDS = 40.0
+SOAK_RATE = 2.0
+SOAK_ACC_LEN_SLOW = 4800
+
+
+def load_demo():
+    """``examples/demo_torch.py`` as a module."""
+    path = Path(__file__).resolve().parent / "examples" / "demo_torch.py"
+    spec = importlib.util.spec_from_file_location("demo_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_soak_path(card: str) -> dict:
+    """The eleventh path: ``scripts/soak.py``'s full leg at the full
+    LWA-352 width (``native.CaptureSource`` fed by a blaster process,
+    every sink live to a receiver process, the 1000-gulp break, a trigger
+    through the control client replayed from its file, the monitor), cut
+    to ``SOAK_SECONDS`` at ``SOAK_RATE`` gulps a second with slow dumps of
+    ``SOAK_ACC_LEN_SLOW`` spectra; every fast window's subselection and
+    every slow dump exact against the plain correlator's truth on both
+    sides of the break, the memory gates held.  Then the demo on the card.
+    The soak's counts are zeroed after its warm-up pipeline and read as
+    its paced run ends, the demo's zeroed and read around it; returns
+    their sum."""
+    tmp = record_dir()
+    try:
+        torch.cuda.empty_cache()
+        rec, _ = soak.run_leg("full", SOAK_SECONDS, SOAK_RATE, "cuda",
+                              acc_len_slow=SOAK_ACC_LEN_SLOW,
+                              dump_dir=str(tmp), on_start=zero_counts)
+        counts = read_counts()
+        zero_counts()
+        demo = load_demo().run("cuda", str(tmp))
+        demo_counts = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("actual_duration_s", "rate_gulps_per_s", "ngulp",
+            "segment_a_gulps", "segment_b_gulps", "nmissing", "nseq",
+            "ndump_fast", "ndump_slow", "ndumps_pre_break",
+            "ndumps_post_break", "subsel_windows", "subsel_windows_exact",
+            "slow_dumps_exact", "wire_packets", "rss_warm_highwater_mb",
+            "rss_end_highwater_mb", "rss_growth_mb", "reserved_quarter_mb",
+            "reserved_end_mb", "reserved_growth_mb", "quarter_mark_s",
+            "dump_file", "reduced", "failures")
+    print(f"[soak] {json.dumps({k: rec[k] for k in keys})}", flush=True)
+    print(f"[soak] device trajectory [s, allocated, reserved, pinned MB]: "
+          f"{rec['device_trajectory_s_mb']}", flush=True)
+    check(rec["pass"], f"[soak] gates failed: {rec['failures']}")
+    check(rec["nmissing"] == 0 and rec["nseq"] >= 2
+          and rec["ndumps_pre_break"] > 0 and rec["ndumps_post_break"] > 0
+          and rec["subsel_windows_exact"] == rec["subsel_windows"]
+          == rec["ndump_fast"] and rec["slow_dumps_exact"]
+          == rec["ndumps_pre_break"] + rec["ndumps_post_break"],
+          f"[soak] record {rec}")
+    print(f"[{card}] soak, full width: {rec['ngulp']} gulps at "
+          f"{rec['rate_gulps_per_s']} a second in "
+          f"{rec['actual_duration_s']} s, 0 packets missing, "
+          f"{rec['nseq']} sequences; {rec['subsel_windows']} fast windows "
+          f"and {rec['slow_dumps_exact']} slow dumps "
+          f"({rec['ndumps_pre_break']} before the break, "
+          f"{rec['ndumps_post_break']} after) exact; RSS high-water grew "
+          f"{rec['rss_growth_mb']} MB (limit {soak.RSS_GROWTH_MB}), "
+          f"memory_reserved {rec['reserved_growth_mb']} MB (limit "
+          f"{rec['reserved_limit_growth_mb']})", flush=True)
+    check(demo["check_failures"] == 0 and demo["checks"] > 0,
+          f"[demo] golden checks on the card: {demo}")
+    print(f"[demo] examples/demo_torch.py on the card: {demo}", flush=True)
+    for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
+        check(counts[name] > 0, f"[soak] {name} not launched by the soak's "
+                                f"paced pipeline")
+    check(sum(demo_counts.values()) > 0, "[demo] no kernel launched")
+    print(f"[soak] kernel launches of the paced pipeline: {counts}; of the "
+          f"demo: {demo_counts}", flush=True)
+    return {name: counts[name] + demo_counts[name] for name in KERNELS}
+
+
 def timed(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall time into ``walls[name]``."""
     t0 = time.perf_counter()
@@ -3709,10 +3742,12 @@ def main() -> int:
     del blocks
     # path 10, the measuring entry points: the five bench scripts
     be, step = timed(walls, "bench", run_bench_path, card)
+    # path 11, the soak's full leg and the demo
+    so = timed(walls, "soak", run_soak_path, card)
     launches = {name: xb[name] + fx[name] + fe[name] + dr[name] + me[name]
                 + wi[name] + sc[name] + rc[name] + of[name] + mh[name]
-                + be[name] for name in KERNELS}
-    print(f"kernel launches over the ten paths and the schedules run: "
+                + be[name] + so[name] for name in KERNELS}
+    print(f"kernel launches over the eleven paths and the schedules run: "
           f"{launches}", flush=True)
 
     t1 = time.perf_counter()

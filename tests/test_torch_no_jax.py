@@ -1,6 +1,7 @@
 """The port, its CLI, the operator scripts, the offline, receiver and
-golden CLIs, the benches and ``utils/roofline.py``, the multi-process mesh
-and its test worker and ``chip_smoke.py`` import without JAX and
+golden CLIs, the benches and ``utils/roofline.py``, the soak and its
+loopback processes, the multi-process mesh and its test worker, the demo
+``examples/demo_torch.py`` and ``chip_smoke.py`` import without JAX and
 without any module of the JAX package (and without ``grpc``, which only an
 etcd store needs; the offline CLIs replay without ``h5py``, which only
 their writers need), an ``XEnginePipeline`` runs on the CPU (unsharded and
@@ -67,6 +68,8 @@ import caltech_bifrost_dsp_tpu_torch.scripts.monitor
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
 import caltech_bifrost_dsp_tpu_torch.scripts.probe_rx
 import caltech_bifrost_dsp_tpu_torch.scripts.snap_rx
+import caltech_bifrost_dsp_tpu_torch.scripts.soak
+import caltech_bifrost_dsp_tpu_torch.scripts.soak_wire
 import caltech_bifrost_dsp_tpu_torch.scripts.upchan_bf
 import caltech_bifrost_dsp_tpu_torch.scripts.upchan_imag
 import caltech_bifrost_dsp_tpu_torch.scripts.xeng_manager
@@ -77,6 +80,8 @@ import caltech_bifrost_dsp_tpu_torch.utils.timeutils
 import chip_smoke
 sys.path.insert(0, "tests")
 import torch_multihost_worker
+sys.path.insert(0, "examples")
+import demo_torch
 from caltech_bifrost_dsp_tpu_torch.config import TINY
 from caltech_bifrost_dsp_tpu_torch.io.sink import CorrPartOutput
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
