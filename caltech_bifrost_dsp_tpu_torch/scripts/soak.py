@@ -54,13 +54,11 @@ import os
 import resource
 import shutil
 import socket
-import subprocess
 import sys
 import tempfile
 import threading
 import time
 from multiprocessing import shared_memory
-from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -78,7 +76,7 @@ from ..ops import corr_subsel as cs
 from ..ops.correlate import Vis, chan_major, correlate_chan_major
 from ..ops.kernels import _build
 from ..runtime.driver import XEnginePipeline
-from ..utils.roofline import card_fields
+from ..utils.roofline import card_fields, current_commit
 from . import soak_wire
 
 LEGS = ("xb", "fx", "full")
@@ -398,20 +396,6 @@ def warm(leg: str, cfg: XEngineConfig, device) -> None:
                            subsel_outputs=[sink.CorrPartOutput(cfg)],
                            device=device)
     pipe.run(2 * cfg.acc_len // cfg.ntime_gulp, timeout_s=600)
-
-
-def current_commit() -> str | None:
-    """``CBD_SOAK_COMMIT``, else ``git rev-parse HEAD`` where the checkout
-    is a repository."""
-    if os.environ.get("CBD_SOAK_COMMIT"):
-        return os.environ["CBD_SOAK_COMMIT"]
-    try:
-        return subprocess.run(
-            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
-            check=True, cwd=Path(__file__).resolve().parents[2]
-        ).stdout.strip() or None
-    except (OSError, subprocess.CalledProcessError):
-        return None
 
 
 def _gulp_index(seq0: int, ntime_gulp: int, n_a: int) -> int:

@@ -15,7 +15,9 @@ slower under load, so every time is printed beside :func:`card`.
 from __future__ import annotations
 
 import math
+import os
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -118,3 +120,18 @@ def card_fields() -> dict:
     except (OSError, subprocess.CalledProcessError, IndexError, ValueError):
         return {"device": None, "power_limit": None}
     return {"device": name, "power_limit": limit}
+
+
+def current_commit() -> str | None:
+    """The code a record was made from: ``CBD_COMMIT``, else ``git
+    rev-parse HEAD`` where the checkout is a repository (a copy made with
+    ``git archive`` has no ``.git``: name its commit in ``CBD_COMMIT``)."""
+    if os.environ.get("CBD_COMMIT"):
+        return os.environ["CBD_COMMIT"]
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            check=True, cwd=Path(__file__).resolve().parents[2]
+        ).stdout.strip() or None
+    except (OSError, subprocess.CalledProcessError):
+        return None

@@ -52,7 +52,10 @@ def reference_correlation(block_u8: np.ndarray) -> np.ndarray:
     ntime, nchan, nstand, npol = block_u8.shape
     dc = unpack_complex_np(block_u8).astype(np.complex128)
     x = dc.reshape(ntime, nchan, nstand * npol)
-    v = np.einsum("tci,tcj->cij", x, np.conj(x))
+    # a batched complex128 product (BLAS) in place of the reference's
+    # einsum: every sum of these integer products is exact in float64 in
+    # any order, so the result is the einsum's bit for bit, ~10x sooner
+    v = x.transpose(1, 2, 0) @ np.conj(x).transpose(1, 0, 2)
     v = v.reshape(nchan, nstand, npol, nstand, npol)
     return v.transpose(0, 1, 3, 2, 4)
 
@@ -143,13 +146,14 @@ def host_corr_int32(block_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     re8, im8 = unpack_np(block_u8.reshape(ntime, nchan, ni))
     vr = np.empty((nchan, ni, ni), np.int32)
     vi = np.empty((nchan, ni, ni), np.int32)
+    a = np.empty((2 * ntime, ni), np.float32)  # [r; i], refilled per channel
+    r, i = a[:ntime], a[ntime:]
     for c in range(nchan):
-        r = re8[:, c, :].astype(np.float32)
-        i = im8[:, c, :].astype(np.float32)
-        a = np.concatenate([r, i], axis=0)     # [2t, ni]
-        vr[c] = (a.T @ a).astype(np.int32)     # r^T r + i^T i
+        r[...] = re8[:, c, :]
+        i[...] = im8[:, c, :]
+        vr[c] = a.T @ a                        # r^T r + i^T i
         ir = i.T @ r
-        vi[c] = (ir - ir.T).astype(np.int32)   # i^T r - r^T i
+        vi[c] = ir - ir.T                      # i^T r - r^T i
     return vr, vi
 
 

@@ -14,12 +14,13 @@ then drives eleven paths of the port, each with the kernel launch counts
 set to 0 just before it and read just after:
 
 - X/B: :class:`XEngineRunner` over the golden input stream (seed
-  0xdeadbeef), three fast windows at 192 channels and one at 184, then the
-  first window through ``xengine_step`` with ``TPU_ENGINES`` in the padded
-  chan-major staging, as the JAX package's on-chip parity gate
-  (``scripts/tpu_parity.py``) runs it; with the FX path's checks this
-  path is the port's parity gate (the JAX gate's three windows at 184
-  channels are cut to one);
+  0xdeadbeef), three fast windows at 192 channels, then the port's
+  golden-parity gate (``scripts/gpu_parity.py``, the JAX package's
+  ``scripts/tpu_parity.py`` at its full depth) in process: ``xengine_step``
+  with ``TPU_ENGINES`` in the padded chan-major staging over three golden
+  windows at 192 channels and three at 184, every fast, slow, subselection
+  and VLBI element exact against the host's truth, and its FX leg, the
+  direct channelizer against a float64 host PFB;
 - FX: :class:`XEngineRunner` in FX mode on int8 ADC, three windows and a
   slow dump at 192 channels, one at 184, one with float32 ADC (bytes equal
   to the int8 run's) and one tone window; per window the channelizer's
@@ -56,9 +57,9 @@ set to 0 just before it and read just after:
   by ``delay_ns``, 0 packets missing; its COR slow dump through the C++
   packetizer at that cap), each fast dump equal to the plain correlator's
   and every sink's packets byte for byte those of the golden-source run;
-  last, one int8 FX window over ``AdcCaptureSource``, its packets those of
-  the same samples fed in process.  The COR receiver hands its packets
-  back through shared memory.
+  last, one int8 FX window of two gulps over ``AdcCaptureSource``, its
+  packets those of the same samples fed in process.  The COR receiver
+  hands its packets back through shared memory.
 
 A run then drives the two correlator schedules that no engine name
 selects, ``corr_acc`` with the ``unpack_cache`` that is not the default and
@@ -230,7 +231,8 @@ from caltech_bifrost_dsp_tpu_torch.scripts import (bench_ingest,
                                                    bench_pipeline,
                                                    bench_scaling,
                                                    bench_stages, bench_step,
-                                                   probe_subsel, soak,
+                                                   gpu_parity, probe_subsel,
+                                                   soak,
                                                    soak_wire,
                                                    upchan_bf, upchan_imag)
 from caltech_bifrost_dsp_tpu_torch.utils.codec import unpack_complex_np
@@ -711,8 +713,8 @@ def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
         check(power_close(torch.from_numpy(prod["bf_power"]), wp.cpu()),
               f"{cfg.nchan}c window {w}: beam power vs plain")
         slow_plain = plain if slow_plain is None else slow_plain + plain
-        print(f"[{cfg.nchan}c] window {w}: fast, subsel, VLBI exact; power "
-              f"within rtol 1e-4 ({window_s[-1]:.3f} s in the runner)",
+        print(f"[runner {cfg.nchan}c] window {w}: fast, subsel, VLBI exact; "
+              f"power within rtol 1e-4 ({window_s[-1]:.3f} s in the runner)",
               flush=True)
         del packed, xc, fast, plain
     check(next(it, None) is None, "runner yielded more calls than windows")
@@ -721,43 +723,8 @@ def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
     check(np.array_equal(sr, slow_plain.real.cpu().numpy())
           and np.array_equal(si, slow_plain.imag.cpu().numpy()),
           f"{cfg.nchan}c: slow dump vs plain")
-    print(f"[{cfg.nchan}c] slow dump after {nwin} windows: exact", flush=True)
-
-
-def run_cti_window(dev, block: np.ndarray, gains_np) -> None:
-    """One golden window through ``xengine_step`` with ``TPU_ENGINES`` in
-    the padded chan-major staging (``layout="cti"``, 768 lanes, the pad
-    lanes 0x88), the program the JAX package's on-chip parity gate
-    (``scripts/tpu_parity.py``) runs: fast, slow and subselection exact and
-    VLBI exact against the plain versions on the same bytes, power within
-    rtol 1e-4."""
-    cfg = DRIVER_CFG.replace(**TPU_ENGINES)
-    ni = cfg.ninput
-    packed = torch.from_numpy(block.reshape(cfg.acc_len, cfg.nchan,
-                                            ni)).to(dev)
-    staged = torch.full((cfg.nchan, cfg.acc_len, 768), 0x88,
-                        dtype=torch.uint8, device=dev)
-    staged[:, :, :ni] = packed.permute(1, 0, 2)
-    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
-    pairs = torch.from_numpy(PAIRS).to(dev)
-    state, out = xengine_step(init_state(cfg, dev), staged, gains, pairs,
-                              True, True, True, cfg, layout="cti")
-    xc = chan_major(packed, "tci")
-    plain = correlate_chan_major(xc)
-    for which, vis in (("fast", state.vis_fast), ("slow", state.vis_slow)):
-        got = dense_vis(vis, cfg)
-        check(torch.equal(got.real, plain.real)
-              and torch.equal(got.imag, plain.imag),
-              f"[cti] {which} dump vs plain")
-    want = cs.corr_subsel_ref(plain, pairs, cfg.nchan_sum)
-    check(torch.equal(out.subsel.real, want.real)
-          and torch.equal(out.subsel.imag, want.imag), "[cti] subsel vs plain")
-    wp, wv = bf.beamform_products_ref(xc, gains, cfg.ntime_sum)
-    check(torch.equal(out.vlbi, wv), "[cti] VLBI not exact")
-    check(power_close(out.bf_power, wp), "[cti] beam power vs plain")
-    print("[cti] one golden window, TPU_ENGINES, padded chan-major staging "
-          "(pad lanes 0x88): fast, slow, subsel, VLBI exact; power within "
-          "rtol 1e-4", flush=True)
+    print(f"[runner {cfg.nchan}c] slow dump after {nwin} windows: exact",
+          flush=True)
 
 
 def zero_counts() -> None:
@@ -1655,6 +1622,8 @@ class PacketsMissing(RuntimeError):
 #: offered rates of the capture run, Gb/s; the second only after a run
 #: that lost a packet
 WIRE_GBPS = (4.0, 1.5)
+#: gulps in the FX window sent over the wire
+FX_WIRE_GULPS = 2
 #: rate caps of the C++ COR packetizer tried in turn, Mb/s (-1: none)
 COR_MBPS = (-1, 1500, 600)
 
@@ -1738,13 +1707,17 @@ def fx_driver(cfg, src, qs: float, gains_np, **kw
 def run_fx_capture(card: str, gains_np, qs: float) -> dict:
     """One int8 FX window at full width as snap2 ADC frames over loopback
     (``AdcCaptureSource``): every packet of its slow dump, subselection and
-    beams equal to the same samples fed in process.  Returns its counts."""
-    cfg = FX_CFG.replace(acc_len_slow=FX_CFG.acc_len)
+    beams equal to the same samples fed in process.  The window is cut to
+    two gulps (one gulp boundary inside it) for the smoke's time limit.
+    Returns its counts."""
+    cfg = FX_CFG.replace(acc_len=FX_WIRE_GULPS * FX_CFG.ntime_gulp,
+                         acc_len_slow=FX_WIRE_GULPS * FX_CFG.ntime_gulp)
     adc = adc_windows(cfg, 1, SEED + 5)[0]
     ngulp = cfg.acc_len // cfg.ntime_gulp
-    print(f"[capture FX] depth cut to one {cfg.acc_len}-spectra window of "
-          f"int8 ADC ({adc.nbytes} B) at the full {cfg.ninput} inputs x "
-          f"{cfg.nchan} channels, for the time limit", flush=True)
+    print(f"[capture FX] depth cut to one {cfg.acc_len}-spectra window "
+          f"({ngulp} gulps) of int8 ADC ({adc.nbytes} B) at the full "
+          f"{cfg.ninput} inputs x {cfg.nchan} channels, for the time limit",
+          flush=True)
     pipe, here = fx_driver(cfg, AdcWindowSource(cfg, adc), qs, gains_np)
     pipe.run(ngulp, timeout_s=600)
     frames = adc.view(np.uint8).reshape(cfg.acc_len, 2 * cfg.nchan,
@@ -3701,11 +3674,16 @@ def main() -> int:
     window_s = []
     t1 = time.perf_counter()
     run_geometry(dev, DRIVER_CFG, blocks, gains_np, window_s)
-    cfg184 = LWA352.replace(nchan=184, acc_len_slow=2400)
-    run_geometry(dev, cfg184, golden_windows(cfg184, 1),
-                 [g[:184] for g in gains_np], window_s)
-    run_cti_window(dev, blocks[0], gains_np)
     walls["X/B"] = time.perf_counter() - t1
+    # the golden-parity gate: the production step against the host's truth
+    t1 = time.perf_counter()
+    parity = {"geometries": {}}
+    for nchan in (192, 184):
+        check(gpu_parity.run_geometry(nchan, 3 * DRIVER_CFG.acc_len,
+                                      LWA352.nstand, parity, "cuda"),
+              f"[parity] {nchan}c: a window or the slow sum failed")
+    check(gpu_parity.run_fx(parity, "cuda"), "[parity] FX leg failed")
+    walls["parity"] = time.perf_counter() - t1
     xb = read_counts()
     for name in (DEFAULT_CORR, "beamform_products", "subsel_gather"):
         check(xb[name] > 0, f"kernel {name} not launched by the X/B path")

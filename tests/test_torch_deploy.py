@@ -5,8 +5,9 @@
 Each unit's ``ExecStart`` (with ``%i`` = 0 and ``${ETCD_HOST}`` filled in)
 parses under the port CLI's own ``argparse`` parser and names the port's
 package, with the JAX unit's flags; the installer passes ``bash -n``;
-every ``cbd-torch-*`` entry point imports to a callable ``main``; the demo
-runs on the CPU, exit 0, every slow dump equal to the golden file."""
+every ``cbd-torch-*`` entry point imports to a callable ``main``; every
+kernel source and header ships as package data; the demo runs on the CPU,
+exit 0, every slow dump equal to the golden file."""
 
 import importlib
 import os
@@ -18,6 +19,8 @@ import tomllib
 from pathlib import Path
 
 import pytest
+
+from caltech_bifrost_dsp_tpu_torch.ops.kernels import _build
 
 REPO = Path(__file__).resolve().parents[1]
 DEPLOY = REPO / "deploy"
@@ -98,16 +101,47 @@ def test_every_jax_command_has_a_port_command():
     assert jax <= port, jax - port
 
 
+#: port scripts whose JAX counterpart has another name and no command
+RENAMED = {"gpu_parity": "tpu_parity"}
+
+
 @pytest.mark.parametrize("name", sorted(k for k in _scripts()
                                         if k.startswith("cbd-torch-")))
 def test_port_command_imports_its_main(name):
     target = _scripts()[name]
     module, _, attr = target.partition(":")
     assert module.startswith("caltech_bifrost_dsp_tpu_torch.scripts.")
-    assert module.rsplit(".", 1)[1] == _scripts()[
-        name.replace("cbd-torch-", "cbd-tpu-")].partition(":")[0].rsplit(
-            ".", 1)[1]
+    base = module.rsplit(".", 1)[1]
+    twin = _scripts().get(name.replace("cbd-torch-", "cbd-tpu-"))
+    if base in RENAMED:
+        assert twin is None
+        assert (REPO / "caltech_bifrost_dsp_tpu" / "scripts"
+                / f"{RENAMED[base]}.py").is_file()
+    else:
+        assert twin.partition(":")[0].rsplit(".", 1)[1] == base
     assert callable(getattr(importlib.import_module(module), attr))
+
+
+def test_parity_gate_has_a_command():
+    assert (_scripts()["cbd-torch-parity"]
+            == "caltech_bifrost_dsp_tpu_torch.scripts.gpu_parity:main")
+
+
+def _package_data() -> list:
+    with open(REPO / "pyproject.toml", "rb") as fh:
+        setuptools = tomllib.load(fh)["tool"]["setuptools"]
+    return setuptools["package-data"]["caltech_bifrost_dsp_tpu_torch"]
+
+
+@pytest.mark.parametrize("name", [p.name for p in _build._sources()
+                                  + _build._headers()])
+def test_package_data_ships_every_kernel_file(name):
+    """A non-editable install (a wheel, ``pip install .``) carries only
+    package data: every source ``_build`` compiles and every header they
+    include must match one of its globs, or the kernels cannot build."""
+    pkg = REPO / "caltech_bifrost_dsp_tpu_torch"
+    shipped = {p for pattern in _package_data() for p in pkg.glob(pattern)}
+    assert _build.CSRC / name in shipped
 
 
 def test_demo_runs_on_cpu_with_exact_products():

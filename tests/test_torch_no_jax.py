@@ -63,6 +63,7 @@ import caltech_bifrost_dsp_tpu_torch.scripts.bench_step
 import caltech_bifrost_dsp_tpu_torch.scripts.check_golden
 import caltech_bifrost_dsp_tpu_torch.scripts.corr_part_rx
 import caltech_bifrost_dsp_tpu_torch.scripts.corr_rx
+import caltech_bifrost_dsp_tpu_torch.scripts.gpu_parity
 import caltech_bifrost_dsp_tpu_torch.scripts.make_golden
 import caltech_bifrost_dsp_tpu_torch.scripts.monitor
 import caltech_bifrost_dsp_tpu_torch.scripts.pipeline
