@@ -21,6 +21,11 @@ correlation and beam packet emitters.
 
 Writers take a ``send`` callable (a :class:`UdpSender` or a collector), so
 tests capture packets without a network; ``send=None`` emits nothing.
+Each keeps :class:`SinkCounters` (``counters``): packets, bytes, seconds in
+its calls and in its throttle's sleeps, always; with spans on
+(:mod:`..utils.proclog`), each call is an ``output.<name>`` span, each
+throttle sleep an ``output.<name>.throttle`` span inside it, and the call's
+seconds are split into ``send`` and the rest (the encode).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import time
 import numpy as np
 
 from ..ops.corr_subsel import subsel_output_sfreq
-from ..utils.proclog import PerfTimer
+from ..utils import proclog
 from . import native
 from . import packets as pk
 
@@ -48,17 +53,102 @@ class Throttle:
         self._bits = 0
         self._t0 = time.monotonic()
 
-    def account(self, nbits: int) -> None:
+    def account(self, nbits: int) -> float:
+        """Count ``nbits`` sent; returns the seconds slept for them."""
         if not self.max_bps or self.max_bps <= 0:
-            return
+            return 0.0
         self._bits += nbits
-        if self._bits >= self.block_bits:
-            elapsed = time.monotonic() - self._t0
-            min_time = self._bits / self.max_bps
-            if min_time > elapsed:
-                time.sleep(min_time - elapsed)
-            self._t0 = time.monotonic()
-            self._bits = 0
+        if self._bits < self.block_bits:
+            return 0.0
+        now = time.monotonic()
+        min_time = self._bits / self.max_bps
+        slept = 0.0
+        if min_time > now - self._t0:
+            with proclog.span(".throttle"):
+                time.sleep(min_time - (now - self._t0))
+            t = time.monotonic()
+            slept, now = t - now, t
+        self._t0 = now
+        self._bits = 0
+        return slept
+
+
+class SinkCounters:
+    """A sink's accounting, always on: ``npkt`` and ``nbyte`` sent,
+    ``process_time`` (seconds in its calls) and ``throttle_s`` (seconds
+    its throttle slept); with spans on, ``send_s`` (seconds in ``send``)
+    and ``encode_s`` (the rest of a call less the throttle's sleep).
+    :meth:`call` wraps one call of the sink as span ``output.<name>``;
+    :meth:`publish` is the record of the sink's ``perf`` proclog."""
+
+    def __init__(self, name: str):
+        self.span_name = "output." + name
+        self.npkt = self.nbyte = 0
+        self.process_time = self.throttle_s = 0.0
+        self.encode_s = self.send_s = 0.0
+
+    def call(self, window: int, send=None, throttle=None) -> "_SinkCall":
+        """Context of one call serving fast window ``window``; it sends
+        with ``send`` (or the send it is given) and accounts each packet
+        with ``throttle``."""
+        return _SinkCall(self, window, send, throttle)
+
+    def publish(self) -> dict:
+        return {"acquire_time": 0.0, "reserve_time": 0.0,
+                "process_time": self.process_time,
+                "gbps": (8 * self.nbyte / self.process_time / 1e9
+                         if self.process_time > 0 else 0.0),
+                "npkt": self.npkt, "nbyte": self.nbyte,
+                "throttle_s": self.throttle_s, "encode_s": self.encode_s,
+                "send_s": self.send_s}
+
+
+class _SinkCall:
+    """One sink call: ``self(pkt)`` sends a packet, counts it and lets the
+    throttle account for it; the call's totals reach the counters on
+    leaving the ``with``."""
+
+    def __init__(self, counters: SinkCounters, window: int, send,
+                 throttle):
+        self.counters, self.window = counters, window
+        self.send, self.throttle = send, throttle
+        self.npkt = self.nbyte = 0
+        self.throttle_s = self.send_s = 0.0
+
+    def __enter__(self) -> "_SinkCall":
+        self.span = proclog.span(self.counters.span_name, self.window)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __call__(self, pkt: bytes, send=None) -> None:
+        if send is None:
+            send = self.send
+        if self.span:
+            t = time.perf_counter()
+            send(pkt)
+            self.send_s += time.perf_counter() - t
+        else:
+            send(pkt)
+        self.add(1, len(pkt))
+        if self.throttle is not None:
+            self.throttle_s += self.throttle.account(8 * len(pkt))
+
+    def add(self, npkt: int, nbyte: int) -> None:
+        """Count packets sent elsewhere (the native packetizer)."""
+        self.npkt += npkt
+        self.nbyte += nbyte
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter() - self.t0
+        c = self.counters
+        c.npkt += self.npkt
+        c.nbyte += self.nbyte
+        c.process_time += dt
+        c.throttle_s += self.throttle_s
+        if self.span:
+            c.send_s += self.send_s
+            c.encode_s += dt - self.send_s - self.throttle_s
+        self.span.close()
 
 
 class UdpSender:
@@ -123,7 +213,7 @@ class CorrFullOutput:
         # (.npy), None = off; set by the output command block
         self.autos_path: str | None = None
         self.throttle = Throttle(max_mbps * 1e6 if max_mbps > 0 else None)
-        self.perf = PerfTimer()
+        self.counters = SinkCounters("cor")
         self.checkfile = checkfile
         self.checkfile_acc_len = checkfile_acc_len
         self.check_failures = 0
@@ -207,7 +297,6 @@ class CorrFullOutput:
             return 0
         cfg = self.cfg
         nchan, nstand, npol = cfg.nchan, cfg.nstand, cfg.npol
-        self.perf.tick()
         re5 = np.asarray(vis_re).reshape(nchan, nstand, npol, nstand, npol)
         im5 = np.asarray(vis_im).reshape(nchan, nstand, npol, nstand, npol)
         frame_number, secs, freq, time_tag, navg = _cor_header_fields(
@@ -216,30 +305,28 @@ class CorrFullOutput:
         # [chan, p0, nj, p1] -> per packet j: COR [chan, p0, p1, 2],
         # custom [p0, p1, chan, 2]
         order = (2, 0, 1, 3) if self.use_cor_fmt else (2, 1, 3, 0)
-        npkt = 0
-        for s0 in range(nstand):
-            re = re5[:, s0, :, s0:, :].transpose(order)
-            data = np.empty(re.shape + (2,), ">i4")
-            data[..., 0] = re
-            data[..., 1] = im5[:, s0, :, s0:, :].transpose(order)
-            for j in range(data.shape[0]):
-                if self.use_cor_fmt:
-                    pkt = pk.encode_cor(pk.CorHeader(
-                        frame_number=frame_number, secs_count=secs,
-                        freq_count=freq, cor_gain=0, time_tag=time_tag,
-                        cor_navg=navg, stand_i=s0 + 1,
-                        stand_j=s0 + j + 1), data[j])
-                else:
-                    pkt = pk.encode_corr_full(pk.CorrFullHeader(
-                        sync_time=sync_time, spectra_id=spectra_id,
-                        bw_hz=bw_hz, sfreq_hz=cfg.sfreq_hz,
-                        acc_len=acc_len, nchans=nchan, chan0=cfg.chan0,
-                        npols=npol, stand0=s0, stand1=s0 + j), data[j])
-                self.send(pkt)
-                self.throttle.account(8 * len(pkt))
-                npkt += 1
-        self._mark(npkt)
-        return npkt
+        with self.counters.call(spectra_id // cfg.acc_len, self.send,
+                                self.throttle) as out:
+            for s0 in range(nstand):
+                re = re5[:, s0, :, s0:, :].transpose(order)
+                data = np.empty(re.shape + (2,), ">i4")
+                data[..., 0] = re
+                data[..., 1] = im5[:, s0, :, s0:, :].transpose(order)
+                for j in range(data.shape[0]):
+                    if self.use_cor_fmt:
+                        pkt = pk.encode_cor(pk.CorHeader(
+                            frame_number=frame_number, secs_count=secs,
+                            freq_count=freq, cor_gain=0, time_tag=time_tag,
+                            cor_navg=navg, stand_i=s0 + 1,
+                            stand_j=s0 + j + 1), data[j])
+                    else:
+                        pkt = pk.encode_corr_full(pk.CorrFullHeader(
+                            sync_time=sync_time, spectra_id=spectra_id,
+                            bw_hz=bw_hz, sfreq_hz=cfg.sfreq_hz,
+                            acc_len=acc_len, nchans=nchan, chan0=cfg.chan0,
+                            npols=npol, stand0=s0, stand1=s0 + j), data[j])
+                    out(pkt)
+        return out.npkt
 
     def _send_native(self, vis_re, vis_im, sync_time: int, spectra_id: int,
                      acc_len: int) -> int:
@@ -247,27 +334,24 @@ class CorrFullOutput:
         (``caltech_bifrost_dsp_tpu/io/sink.py:127-162``)."""
         cfg = self.cfg
         ip, port = self.native_dest
-        self.perf.tick()
-        if self.use_cor_fmt:
-            fn, secs, freq, time_tag, navg = _cor_header_fields(
-                cfg, sync_time, spectra_id, acc_len)
-            npkt = native.cor5c_send_matrix(
-                vis_re, vis_im, cfg.nstand, cfg.npol, fn, secs, freq,
-                time_tag, navg, dest_ip=ip, port=port,
-                max_mbps=float(self.max_mbps))
-        else:
-            npkt = native.cor_send_matrix(
-                vis_re, vis_im, cfg.nstand, cfg.npol, sync_time, spectra_id,
-                cfg.nchan * cfg.chan_bw_hz, cfg.sfreq_hz, acc_len, cfg.chan0,
-                dest_ip=ip, port=port, max_mbps=float(self.max_mbps))
-        self._mark(npkt)
+        with self.counters.call(spectra_id // cfg.acc_len) as out:
+            if self.use_cor_fmt:
+                fn, secs, freq, time_tag, navg = _cor_header_fields(
+                    cfg, sync_time, spectra_id, acc_len)
+                npkt = native.cor5c_send_matrix(
+                    vis_re, vis_im, cfg.nstand, cfg.npol, fn, secs, freq,
+                    time_tag, navg, dest_ip=ip, port=port,
+                    max_mbps=float(self.max_mbps))
+            else:
+                npkt = native.cor_send_matrix(
+                    vis_re, vis_im, cfg.nstand, cfg.npol, sync_time,
+                    spectra_id, cfg.nchan * cfg.chan_bw_hz, cfg.sfreq_hz,
+                    acc_len, cfg.chan0, dest_ip=ip, port=port,
+                    max_mbps=float(self.max_mbps))
+            hdr_nbyte = 32 if self.use_cor_fmt else 56
+            out.add(npkt, npkt * (hdr_nbyte
+                                  + cfg.npol * cfg.npol * cfg.nchan * 8))
         return npkt
-
-    def _mark(self, npkt: int) -> None:
-        cfg = self.cfg
-        hdr_nbyte = 32 if self.use_cor_fmt else 56
-        self.perf.mark_process(
-            npkt * (hdr_nbyte + cfg.npol * cfg.npol * cfg.nchan * 8))
 
 
 class CorrPartOutput:
@@ -281,6 +365,7 @@ class CorrPartOutput:
         self.nvis_per_packet = nvis_per_packet
         self.use_cor_fmt = use_cor_fmt
         self.throttle = Throttle(max_mbps * 1e6 if max_mbps > 0 else None)
+        self.counters = SinkCounters("subsel")
 
     def _send_subsel_cor(self, subsel_re: np.ndarray,
                          subsel_im: np.ndarray, baselines, spectra_id: int,
@@ -308,19 +393,21 @@ class CorrPartOutput:
             cfg, sync_time, spectra_id, acc_len, nchan_sum=cfg.nchan_sum)
         re = subsel_re.reshape(nchan_out, nbl, cfg.npol, cfg.npol)
         im = subsel_im.reshape(nchan_out, nbl, cfg.npol, cfg.npol)
-        npkt = 0
-        for b, (si, sj) in enumerate(stand_pairs):
-            data = np.empty((nchan_out, cfg.npol, cfg.npol, 2), np.int32)
-            data[..., 0] = re[:, b]
-            data[..., 1] = im[:, b]
-            pkt = pk.encode_cor(pk.CorHeader(
-                frame_number=frame_number, secs_count=secs,
-                freq_count=freq, cor_gain=0, time_tag=time_tag,
-                cor_navg=navg, stand_i=si, stand_j=sj), data)
-            self.send(pkt)
-            self.throttle.account(8 * len(pkt))
-            npkt += 1
-        return npkt
+        with self._call(spectra_id) as out:
+            for b, (si, sj) in enumerate(stand_pairs):
+                data = np.empty((nchan_out, cfg.npol, cfg.npol, 2),
+                                np.int32)
+                data[..., 0] = re[:, b]
+                data[..., 1] = im[:, b]
+                out(pk.encode_cor(pk.CorHeader(
+                    frame_number=frame_number, secs_count=secs,
+                    freq_count=freq, cor_gain=0, time_tag=time_tag,
+                    cor_navg=navg, stand_i=si, stand_j=sj), data))
+        return out.npkt
+
+    def _call(self, spectra_id: int):
+        return self.counters.call(spectra_id // self.cfg.acc_len, self.send,
+                                  self.throttle)
 
     def send_subsel(self, subsel_re: np.ndarray, subsel_im: np.ndarray,
                     baselines: np.ndarray, sync_time: int, spectra_id: int,
@@ -336,22 +423,19 @@ class CorrPartOutput:
         sfreq = subsel_output_sfreq(cfg.sfreq_hz,
                                     cfg.nchan * cfg.chan_bw_hz,
                                     cfg.nchan, cfg.nchan_sum)
-        npkt = 0
-        for v0 in range(0, nvis, self.nvis_per_packet):
-            v1 = min(v0 + self.nvis_per_packet, nvis)
-            data = np.empty((v1 - v0, nchan_out, 2), np.int32)
-            data[..., 0] = subsel_re[:, v0:v1].T
-            data[..., 1] = subsel_im[:, v0:v1].T
-            hdr = pk.CorrPartHeader(
-                sync_time=sync_time, spectra_id=spectra_id,
-                bw_hz=cfg.nchan * cfg.chan_bw_hz, sfreq_hz=sfreq,
-                acc_len=acc_len, nvis=v1 - v0, nchans=nchan_out,
-                chan0=cfg.chan0 // cfg.nchan_sum)
-            pkt = pk.encode_corr_part(hdr, bl[v0:v1], data)
-            self.send(pkt)
-            self.throttle.account(8 * len(pkt))
-            npkt += 1
-        return npkt
+        with self._call(spectra_id) as out:
+            for v0 in range(0, nvis, self.nvis_per_packet):
+                v1 = min(v0 + self.nvis_per_packet, nvis)
+                data = np.empty((v1 - v0, nchan_out, 2), np.int32)
+                data[..., 0] = subsel_re[:, v0:v1].T
+                data[..., 1] = subsel_im[:, v0:v1].T
+                hdr = pk.CorrPartHeader(
+                    sync_time=sync_time, spectra_id=spectra_id,
+                    bw_hz=cfg.nchan * cfg.chan_bw_hz, sfreq_hz=sfreq,
+                    acc_len=acc_len, nvis=v1 - v0, nchans=nchan_out,
+                    chan0=cfg.chan0 // cfg.nchan_sum)
+                out(pk.encode_corr_part(hdr, bl[v0:v1], data))
+        return out.npkt
 
 
 class PBeamOutput:
@@ -362,21 +446,21 @@ class PBeamOutput:
         self.cfg = cfg
         self.senders = senders or {}
         self.pipeline_idx = pipeline_idx
+        self.counters = SinkCounters("pbeam")
 
     def send_powers(self, power: np.ndarray, seq0: int, navg: int) -> int:
         """power: f32 [nbeam//2, nblock, nchan, 4]."""
         cfg = self.cfg
-        npkt = 0
         _, nblock, nchan, _ = power.shape
-        for b, send in self.senders.items():
-            for t in range(nblock):
-                hdr = pk.PBeamHeader(
-                    server=self.pipeline_idx, beam=b + 1, gbe=0,
-                    nchan=nchan, nbeam=1, nserver=cfg.npipeline,
-                    navg=navg, chan0=cfg.chan0, seq=seq0 + t * navg)
-                send(pk.encode_pbeam(hdr, power[b, t][:, None, :]))
-                npkt += 1
-        return npkt
+        with self.counters.call(seq0 // cfg.acc_len) as out:
+            for b, send in self.senders.items():
+                for t in range(nblock):
+                    hdr = pk.PBeamHeader(
+                        server=self.pipeline_idx, beam=b + 1, gbe=0,
+                        nchan=nchan, nbeam=1, nserver=cfg.npipeline,
+                        navg=navg, chan0=cfg.chan0, seq=seq0 + t * navg)
+                    out(pk.encode_pbeam(hdr, power[b, t][:, None, :]), send)
+        return out.npkt
 
 
 class IBeamOutput:
@@ -392,23 +476,22 @@ class IBeamOutput:
         self.pipeline_idx = pipeline_idx
         self.throttle = Throttle(self.MAX_BPS,
                                  block_bits=npacket_burst * 8 * 1500)
+        self.counters = SinkCounters("ibeam")
 
     def send_voltages(self, vlbi: np.ndarray, seq0: int) -> int:
         """vlbi: f32 [ntime, nchan, nbeam, 2]."""
         if self.send is None:
             return 0
         ntime, nchan, nbeam, _ = vlbi.shape
-        npkt = 0
-        for t in range(ntime):
-            hdr = pk.IBeamHeader(server=self.pipeline_idx, gbe=0,
-                                 nchan=nchan, nbeam=nbeam,
-                                 nserver=self.cfg.npipeline,
-                                 chan0=self.cfg.chan0, seq=seq0 + t)
-            pkt = pk.encode_ibeam(hdr, vlbi[t])
-            self.send(pkt)
-            self.throttle.account(8 * len(pkt))
-            npkt += 1
-        return npkt
+        with self.counters.call(seq0 // self.cfg.acc_len, self.send,
+                                self.throttle) as out:
+            for t in range(ntime):
+                hdr = pk.IBeamHeader(server=self.pipeline_idx, gbe=0,
+                                     nchan=nchan, nbeam=nbeam,
+                                     nserver=self.cfg.npipeline,
+                                     chan0=self.cfg.chan0, seq=seq0 + t)
+                out(pk.encode_ibeam(hdr, vlbi[t]))
+        return out.npkt
 
 
 class TriggeredDump:

@@ -78,6 +78,7 @@ from ..ops.beamform import BeamGains
 from ..ops.correlate import Vis
 from ..ops.pfb import pfb_window
 from ..parallel import mesh as pmesh
+from ..utils import proclog
 from ..utils.proclog import PerfTimer
 from ..verification import golden
 from .arming import Action, IntegrationController
@@ -550,7 +551,9 @@ class XEnginePipeline:
             self._held = []                   # (event, spans) to release
         self._stop = threading.Event()
         self._errors: list = []
-        self.perf_compute = PerfTimer(self.corr_cmd.perf_proclog)
+        self.perf_compute = PerfTimer(self.corr_cmd.perf_proclog,
+                                      stage="compute")
+        self._nput_full = 0
         self.ndump_fast = 0
         self.ndump_slow = 0
         self.dump_times: list = []
@@ -582,10 +585,11 @@ class XEnginePipeline:
                     self.history.set_header(
                         seq.header,
                         t - self.history.count * self.cfg.ntime_gulp)
-            if owned:
-                self.staging.commit_span(seq, gulp)
-            else:
-                self.staging.write_span(seq, gulp)
+            with proclog.span("ingest.commit", t // self.cfg.acc_len):
+                if owned:
+                    self.staging.commit_span(seq, gulp)
+                else:
+                    self.staging.write_span(seq, gulp)
             if self.history is not None:
                 # a committed reservation is reused only after this
                 # thread's next reserve_span, so the gulp is still whole
@@ -608,11 +612,21 @@ class XEnginePipeline:
         while ngulp == 0 or n < ngulp:
             if self._stop.is_set():
                 return
+            # recorded once the gulp it holds names its window
+            reserved = proclog.span("ingest.reserve")
             dest = self.staging.reserve_span(self._raw_gulp_nbyte,
                                              timeout=2.0)
+            reserved.close(record=False)
             if dest is None:
+                reserved.record()
                 continue  # backpressure or shutdown; _stop re-checked
-            t = self.source.fill_into(dest)
+            self.corr_cmd.update_stats(
+                {"staging_held_nbyte": self.staging.held_nbyte})
+            with proclog.span("ingest.fill") as filled:
+                t = self.source.fill_into(dest)
+                if filled and t is not None:
+                    filled.window = reserved.window = t // cfg.acc_len
+            reserved.record()
             if t is None:  # capture poll timeout, or the source stopped
                 self.staging.release_span(dest)
                 if getattr(self.source, "_stopped", False):
@@ -668,17 +682,19 @@ class XEnginePipeline:
         self._npinned_used += 1
         done = self._pinned_done[k]
         if done is not None:
-            done.synchronize()
+            with proclog.span("compute.upload.h2d_wait"):
+                done.synchronize()
         head = tail.nbytes if self.fx_mode else 0
         need = head + flat.nbytes
         if self._pinned[k] is None or self._pinned[k].numel() < need:
             self._pinned[k] = torch.empty(need, dtype=torch.uint8,
                                           pin_memory=True)
         host = self._pinned[k][:need]
-        if head:
-            host[:head].copy_(torch.from_numpy(tail.reshape(-1).view(
-                np.uint8)))
-        host[head:].copy_(torch.from_numpy(flat))
+        with proclog.span("compute.upload.copy"):
+            if head:
+                host[:head].copy_(torch.from_numpy(tail.reshape(-1).view(
+                    np.uint8)))
+            host[head:].copy_(torch.from_numpy(flat))
         if in_ring:
             # the host copy above is all the step needs of the ring, but
             # the spans are handed back only after the H2D has completed
@@ -742,22 +758,26 @@ class XEnginePipeline:
         if self.stub_device_ms is not None:
             return self._stub_step(spans, is_dump)
         self._cpu_held = None
-        block, host = self._upload(spans)
+        with proclog.span("compute.upload"):
+            block, host = self._upload(spans)
         cfg = self.cfg
-        if self.mesh is not None:
-            out = self._mesh_step(block, gains_dev, is_first, is_dump,
-                                  slow_first)
-        elif self.fx_mode:
-            self.state, out = xengine.fx_step(
-                self.state, block, self._window, self.feng_cmd.scale_device,
-                gains_dev, self.subsel_cmd.pairs_device, is_first, is_dump,
-                slow_first, cfg, self._want_power, self._want_vlbi,
-                self._want_subsel)
-        else:
-            self.state, out = xengine.xengine_step(
-                self.state, block, gains_dev, self.subsel_cmd.pairs_device,
-                is_first, is_dump, slow_first, cfg, self._want_power,
-                self._want_vlbi, self._want_subsel)
+        with proclog.span("compute.launch"):
+            if self.mesh is not None:
+                out = self._mesh_step(block, gains_dev, is_first, is_dump,
+                                      slow_first)
+            elif self.fx_mode:
+                self.state, out = xengine.fx_step(
+                    self.state, block, self._window,
+                    self.feng_cmd.scale_device, gains_dev,
+                    self.subsel_cmd.pairs_device, is_first, is_dump,
+                    slow_first, cfg, self._want_power, self._want_vlbi,
+                    self._want_subsel)
+            else:
+                self.state, out = xengine.xengine_step(
+                    self.state, block, gains_dev,
+                    self.subsel_cmd.pairs_device, is_first, is_dump,
+                    slow_first, cfg, self._want_power, self._want_vlbi,
+                    self._want_subsel)
         if self.selftest:
             self._selftest_update(host, is_first, is_dump)
         if self._cpu_held:
@@ -842,7 +862,14 @@ class XEnginePipeline:
         if self.cuda:
             products["ready"] = torch.cuda.Event()
             products["ready"].record(torch.cuda.current_stream(self.device))
-        self.out_queue.put(products)
+        # the depth the put finds, and how often it found the queue full
+        # (the compute thread then waits for the output thread)
+        depth = self.out_queue.qsize()
+        self._nput_full += depth >= self.out_queue.maxsize
+        self.corr_cmd.update_stats({"out_queue_depth": depth,
+                                    "out_queue_nfull": self._nput_full})
+        with proclog.span("compute.emit.put"):
+            self.out_queue.put(products)
 
     def _sync_slow_granularity(self):
         """A runtime fast acc_len change alters the slow accumulator's
@@ -904,6 +931,7 @@ class XEnginePipeline:
         cfg = self.cfg
         gains_dev = self.beam_cmd.device_gains()
         gulps_per_acc = self.fast_ctrl.acc_len // cfg.ntime_gulp
+        self.perf_compute.tick()
         for seq in self.staging.read():
             hdr = seq.header
             t = hdr["seq0"]
@@ -922,7 +950,7 @@ class XEnginePipeline:
             slow_dec = None
             batch: list = []  # buffered (t, span, dec) within one window
             for span in self.staging.read_spans(seq):
-                self.perf_compute.mark_acquire()
+                self.perf_compute.mark_acquire(t // cfg.acc_len)
                 self._reap()
                 if self._stop.is_set():
                     return
@@ -953,7 +981,7 @@ class XEnginePipeline:
                     slow_dec = self.slow_ctrl.on_gulp(dec.seq0)
                     self.corr_acc_cmd.update_stats(
                         {"state": self.slow_ctrl.state})
-                self.perf_compute.mark_reserve()
+                self.perf_compute.mark_reserve(t // cfg.acc_len)
                 # a runtime acc_len larger than the ring can hold must not
                 # buffer a whole window (writer deadlock)
                 fits = (gulps_per_acc + 2) * self._raw_gulp_nbyte \
@@ -1018,10 +1046,14 @@ class XEnginePipeline:
     def _output(self):
         cfg = self.cfg
         while True:
-            item = self.out_queue.get()
+            with proclog.span("output.get") as got:
+                item = self.out_queue.get()
+                if got and item is not None:
+                    got.window = item["seq0"] // cfg.acc_len
             if item is None:
                 return
-            self._fetch(item)
+            with proclog.span("output.fetch", item["seq0"] // cfg.acc_len):
+                self._fetch(item)
             for oc in self.output_cmds:
                 oc.apply_pending()
             if "bf_power" in item:
@@ -1048,6 +1080,12 @@ class XEnginePipeline:
                     snk.send_matrix_planes(vr, vi, self.sync_time,
                                            item["slow_seq0"],
                                            item["slow_acc_len"])
+            for oc in self.output_cmds:
+                # a sink is anything with the send methods; the port's
+                # keep counters
+                counters = getattr(oc.sink, "counters", None)
+                if counters is not None:
+                    oc.perf_proclog.update(counters.publish())
             if "fast_seq0" in item:
                 self.dump_times.append(time.perf_counter())
 

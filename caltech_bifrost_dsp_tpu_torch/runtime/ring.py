@@ -200,6 +200,12 @@ class Ring:
             self._live += pad + nbyte
             return self._backing[a.off:a.off + nbyte]
 
+    @property
+    def held_nbyte(self) -> int:
+        """Bytes of the backing buffer reserved and not yet released
+        (wrap pads included)."""
+        return self._live
+
     def commit_span(self, seq: Sequence, data: np.ndarray) -> None:
         """Publish a filled reservation (any view of it) as a span of
         ``seq``.  No byte-budget accounting: the backing allocator IS
