@@ -13,13 +13,19 @@ lwa352-pipeline.py:57-311, collapsed as in the JAX driver):
 - output: fetches the products from the card and packetizes them (COR /
   partial visibilities / PBEAM / IBEAM), applying destination commands.
 
-Upload to the card: a window is copied from the ring into one of two
-pinned staging buffers, then H2D on a CUDA stream of its own; the step
-waits on a CUDA event recorded after that copy, and the ring spans are
-released only once the event has completed.  Products come back on a
-third stream in the output thread, so the compute thread never waits on
-the card.  On the CPU the step reads the ring memory directly and the
-spans are released after it.
+Upload to the card: the staging ring is registered page-locked
+(``cudaHostRegister``) once, so a window, one view of the ring, goes up
+from the ring itself on a CUDA stream of its own, in FX mode behind the
+FIR history, which goes up from a small pinned buffer.  A window that is
+a private copy, or a ring the runtime would not register, is first copied
+into one of two pinned buffers.  The step waits on a CUDA event recorded
+after its H2D; the H2D waits on the card for the step two windows back,
+not the one before it, so it runs beside that step.  Before each upload
+the compute thread waits for the H2D two windows back and hands that
+window's ring spans back at once; the others go back as their H2D
+completes.  Products come back on a third stream in the output thread, so
+the compute thread never waits on a step.  On the CPU the step reads the
+ring memory directly and the spans are released after it.
 
 The command blocks keep the reference's control surface (typed keys,
 staged application; corr_block.py:243-246, beamform_block.py:230-434,
@@ -32,9 +38,10 @@ sharded programs of :mod:`..parallel.mesh`: the state is
 step variant is chosen by the boundary flags and the wanted products, X/B
 and FX (the ADC tail carried on the host goes in as ``carry_tail``), and
 the products are unsharded before they reach the output thread.  The
-upload stays one pinned buffer and one H2D to the mesh's first device;
-shards on that device are views of the uploaded block, shards elsewhere
-are copied device to device.
+upload stays one block and one H2D to the mesh's first device, from the
+ring as above, but waits for no earlier step; shards on that device are
+views of the uploaded block, shards elsewhere are copied device to
+device.
 
 With ``history_nbyte`` the ingest thread also copies every gulp into a
 :class:`..runtime.ring.HistoryRing` of that many bytes (raw ADC frames in
@@ -65,6 +72,8 @@ import json
 import queue
 import threading
 import time
+import weakref
+from collections import deque
 
 import numpy as np
 import torch
@@ -402,6 +411,33 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np_dtype)).dtype
 
 
+def _page_lock(buf: np.ndarray, device: torch.device):
+    """Register ``buf`` page-locked with the CUDA runtime of ``device``, so
+    that the copy engine reads it in place.  Returns a finalizer that
+    unregisters it, called at the latest when ``buf`` is freed (alive
+    while the registration holds), or None where the runtime refused."""
+    rt = torch.cuda.cudart()
+    ptr = buf.__array_interface__["data"][0]
+    err = []
+
+    def register():
+        with torch.cuda.device(device):
+            err.append(int(rt.cudaHostRegister(ptr, buf.nbytes, 0)))
+
+    # the runtime keeps a refusal as the calling thread's last error, which
+    # that thread's next kernel launch would raise; a thread of its own
+    # takes it away with it
+    th = threading.Thread(target=register, name="page-lock")
+    th.start()
+    th.join()
+    if err[0]:
+        return None
+    lock = weakref.finalize(buf, rt.cudaHostUnregister, ptr)
+    # the process's exit frees the pages; no runtime call at its teardown
+    lock.atexit = False
+    return lock
+
+
 class XEnginePipeline:
     """One pipeline instance: threads + fused step + control endpoints.
 
@@ -542,13 +578,22 @@ class XEnginePipeline:
                 *pmesh.zero_sharded_state(cfg, mesh))
         else:
             self.state = xengine.init_state(cfg, self.device)
+        self._upload_counts = {"upload_direct": 0, "upload_staged": 0}
+        self._ring_lock = None
         if self.cuda:
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
-            self._pinned = [None, None]       # two pinned staging buffers
-            self._pinned_done = [None, None]  # event after each one's H2D
-            self._npinned_used = 0
+            # two pinned buffers, taken in turn: FX's FIR history, or a
+            # whole window where it cannot go up from the ring
+            self._pinned = [None, None]
+            # event after the H2D of each of the last two uploads
+            self._h2d_done = [None, None]
+            self._nupload = 0
             self._held = []                   # (event, spans) to release
+            # event after each of the last two steps' launches
+            self._launched: deque = deque(maxlen=2)
+            self._ring_lock = _page_lock(self.staging.backing, self.device)
+        self._count_upload(None)
         self._stop = threading.Event()
         self._errors: list = []
         self.perf_compute = PerfTimer(self.corr_cmd.perf_proclog,
@@ -659,7 +704,12 @@ class XEnginePipeline:
     def _upload(self, spans) -> tuple[torch.Tensor, np.ndarray]:
         """The step's input over ``spans`` on the device: packed [k *
         ntime_gulp, nchan, ninput] uint8, or in FX mode the ADC behind its
-        FIR history.  Returns (block, host copy of the window's bytes)."""
+        FIR history.  Returns (block, the window's bytes on the host).
+
+        On a card, a window that is one view of the page-locked ring goes
+        up from the ring, FX's FIR history from the pinned buffer in front
+        of it; any other window is copied into that buffer first.  The
+        H2D waits on the card for the step two windows back."""
         cfg = self.cfg
         flat, in_ring = self._window_bytes(spans)
         tail = None
@@ -678,44 +728,70 @@ class XEnginePipeline:
                     # the plain step runs synchronously on the ring memory
                     self._cpu_held = spans
             return block, flat
-        k = self._npinned_used % 2
-        self._npinned_used += 1
-        done = self._pinned_done[k]
+        k = self._nupload % 2
+        self._nupload += 1
+        done = self._h2d_done[k]
         if done is not None:
+            # the upload two back: its pinned buffer is free again, and its
+            # spans go back to the ingest thread now
             with proclog.span("compute.upload.h2d_wait"):
                 done.synchronize()
+            self._reap()
+        direct = in_ring and self._ring_locked
         head = tail.nbytes if self.fx_mode else 0
-        need = head + flat.nbytes
-        if self._pinned[k] is None or self._pinned[k].numel() < need:
-            self._pinned[k] = torch.empty(need, dtype=torch.uint8,
-                                          pin_memory=True)
-        host = self._pinned[k][:need]
-        with proclog.span("compute.upload.copy"):
-            if head:
-                host[:head].copy_(torch.from_numpy(tail.reshape(-1).view(
-                    np.uint8)))
-            host[head:].copy_(torch.from_numpy(flat))
-        if in_ring:
-            # the host copy above is all the step needs of the ring, but
-            # the spans are handed back only after the H2D has completed
-            held = spans
-        else:
-            held = []
+        need = head + (0 if direct else flat.nbytes)
+        host = None
+        if need:
+            if self._pinned[k] is None or self._pinned[k].numel() < need:
+                self._pinned[k] = torch.empty(need, dtype=torch.uint8,
+                                              pin_memory=True)
+            host = self._pinned[k][:need]
+        if head:
+            host[:head].copy_(torch.from_numpy(tail.reshape(-1).view(
+                np.uint8)))
+        if not direct:
+            with proclog.span("compute.upload.copy"):
+                host[head:].copy_(torch.from_numpy(flat))
+        self._count_upload(direct)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._h2d_stream):
-            block = host.to(self.device, non_blocking=True)
+            if len(self._launched) == 2:
+                # bounded run-ahead, not the step just before this one
+                self._h2d_stream.wait_event(self._launched[0])
+            block = torch.empty(head + flat.nbytes, dtype=torch.uint8,
+                                device=self.device)
+            if host is not None:
+                block[:need].copy_(host, non_blocking=True)
+            if direct:
+                block[head:].copy_(torch.from_numpy(flat), non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self._h2d_stream)
         block.record_stream(compute)
         compute.wait_event(ev)
-        self._pinned_done[k] = ev
-        self._held.append((ev, held))
+        self._h2d_done[k] = ev
+        # ring spans go back only once the H2D that reads them is done
+        self._held.append((ev, spans if in_ring else []))
         if self.fx_mode:
             block = block.view(_torch_dtype(self._adc_dtype)).reshape(
                 -1, cfg.ninput)
         else:
             block = block.reshape(-1, cfg.nchan, cfg.ninput)
-        return block, host.numpy()[head:]
+        return block, flat if direct else host.numpy()[head:]
+
+    @property
+    def _ring_locked(self) -> bool:
+        """Whether the staging ring is registered page-locked."""
+        return self._ring_lock is not None and self._ring_lock.alive
+
+    def _count_upload(self, direct: bool | None) -> None:
+        """Count an upload from the ring (``direct``) or through a pinned
+        buffer into the ``Corr`` stats (None: count nothing)."""
+        if direct is not None:
+            self._upload_counts["upload_direct" if direct
+                                else "upload_staged"] += 1
+        self.corr_cmd.update_stats(dict(
+            self._upload_counts, staging_registered_nbyte=(
+                self.staging.nbyte_budget if self._ring_locked else 0)))
 
     def _reap(self, wait: bool = False) -> None:
         """Release the ring spans of every upload whose H2D has completed
@@ -778,6 +854,11 @@ class XEnginePipeline:
                     self.subsel_cmd.pairs_device, is_first, is_dump,
                     slow_first, cfg, self._want_power, self._want_vlbi,
                     self._want_subsel)
+            if self.cuda and self.mesh is None:
+                # the H2D two windows on waits for this
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                self._launched.append(ev)
         if self.selftest:
             self._selftest_update(host, is_first, is_dump)
         if self._cpu_held:

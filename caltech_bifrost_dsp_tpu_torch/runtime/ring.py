@@ -160,6 +160,11 @@ class Ring:
     def backed(self) -> bool:
         return self._backing is not None
 
+    @property
+    def backing(self) -> np.ndarray | None:
+        """The backing buffer (None for heap spans)."""
+        return self._backing
+
     def _span_off(self, data: np.ndarray):
         """Byte offset of ``data`` inside the backing buffer, or None if
         it is a heap span (works on reshaped/retyped views)."""
