@@ -948,7 +948,8 @@ class XEnginePipeline:
         depth = self.out_queue.qsize()
         self._nput_full += depth >= self.out_queue.maxsize
         self.corr_cmd.update_stats({"out_queue_depth": depth,
-                                    "out_queue_nfull": self._nput_full})
+                                    "out_queue_nfull": self._nput_full,
+                                    "slow_dumps": self.ndump_slow})
         with proclog.span("compute.emit.put"):
             self.out_queue.put(products)
 
@@ -1106,16 +1107,21 @@ class XEnginePipeline:
 
     def _fetch(self, item: dict) -> None:
         """Device products -> numpy, on a stream of their own that waits
-        only for the step that made them."""
+        only for the step that made them; a slow dump's two planes inside
+        an ``output.fetch.slow`` span."""
         keys = [k for k in ("bf_power", "vlbi") if k in item]
-        pairs = [k for k in ("subsel", "vis_slow_planes") if k in item]
         ready = item.pop("ready", None)
 
         def fetch():
             for k in keys:
                 item[k] = item[k].cpu().numpy()
-            for k in pairs:
-                item[k] = tuple(p.cpu().numpy() for p in item[k])
+            if "subsel" in item:
+                item["subsel"] = tuple(p.cpu().numpy()
+                                       for p in item["subsel"])
+            if "vis_slow_planes" in item:
+                with proclog.span("output.fetch.slow"):
+                    item["vis_slow_planes"] = tuple(
+                        p.cpu().numpy() for p in item["vis_slow_planes"])
 
         if ready is None:
             fetch()

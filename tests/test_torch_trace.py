@@ -129,6 +129,24 @@ def test_spans_on_each_window_once():
                                  abs=2e-3)
 
 
+@pytest.mark.parametrize("spans", [False, True])
+def test_slow_fetch_span_and_counters(spans):
+    """Each slow dump's planes come back inside one ``output.fetch.slow``
+    span, a child of its window's ``output.fetch``; the ``Corr`` stats
+    count the slow dumps put on the products queue, spans on or off."""
+    pipe, got, recs, _, _ = run(spans=spans)
+    slow = [r for r in recs if r[0] == "output.fetch.slow"]
+    if spans:
+        # a slow dump every two windows, emitted with windows 1 and 3
+        assert sorted(r[3] for r in slow) == [1, 3]
+        assert {r[4] for r in slow} == {"output.fetch"}
+    else:
+        assert slow == []
+    # two dumps of NWIN windows, each sent by the COR sink
+    assert pipe.corr_cmd.stats["slow_dumps"] == len(got.cor) // (
+        CFG.nstand * (CFG.nstand + 1) // 2) == 2
+
+
 def test_sink_counters_are_what_the_sinks_sent():
     pipe, got, _, _, _ = run(spans=False)
     sent = {"cor": got.cor, "subsel": got.sub, "pbeam": got.pb,
