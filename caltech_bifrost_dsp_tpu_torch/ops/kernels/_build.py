@@ -45,6 +45,7 @@ SIGNATURES = {
                        _I, _P, _P),
     "cbd_pfb_factored": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P, _I, _P, _I, _P, _P),
+    "cbd_pfb_fft": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 

@@ -9,8 +9,9 @@ offline upchannelizer run).
 The numpy helpers (window, DFT tables, factor choice, the numpy
 reference) return the JAX module's arrays bit for bit.  The plain torch
 versions compute in float64 from the same float32 tables, so on a CPU
-tensor they are the reference the CUDA kernel
-(:mod:`.pfb_fused`, ``kernels/csrc/pfb_quantize.cu``) is held against.
+tensor they are the reference the CUDA kernels
+(:mod:`.pfb_fused`, ``kernels/csrc/pfb_quantize.cu`` and ``pfb_fft.cu``)
+are held against.
 
 The JAX package has two spectral transforms (``cfg.pfb_fft_impl``
 "fft" and "matmul") and two channelizer engines; all compute the same
@@ -409,10 +410,12 @@ def channelize_pack_imajor(adc: torch.Tensor, window, cfg,
     [ninput, nspec, nchan] (input-major; callers corner-turn the bytes).
 
     One path for every ``cfg.pfb_fft_impl`` and ``pfb_engine`` of the JAX
-    package: CPU tensors take the float64 plain version, CUDA tensors the
+    package: CPU tensors take the float64 plain version, CUDA tensors a
     kernel (factored DFT where L = 2*nchan has a factor pair, else the
-    direct DFT up to nchan = 559; see :mod:`.pfb_fused`).
-    ``cfg.pfb_precision == "bf16"`` selects the bf16-operand DFT.
+    float64 FFT at nchan 192 and 96, else the direct DFT up to nchan =
+    559; see :mod:`.pfb_fused`).  ``cfg.pfb_precision == "bf16"`` selects
+    the bf16-operand DFT, which the direct kernel computes below
+    L = 2048.
     """
     from .pfb_fused import pfb_quantize_packed
 

@@ -5,14 +5,20 @@ pfb_quantize_packed_pallas``).
 :func:`pfb_quantize_packed` takes ADC [ntime, ninput] (float32 or int8,
 any strides) and returns packed uint8 [ninput, nspec, nchan].  CPU tensors
 take the float64 plain version :func:`..pfb.pfb_quantize_packed_ref`;
-CUDA tensors launch ``kernels/csrc/pfb_quantize.cu``: :func:`pfb_factored`
-where :func:`..pfb._dft_factors` gives a factor pair the kernel tiles
-(the F-engine scale, L = 2*nchan = 8192 -> (128, 64)), else
-:func:`pfb_direct` while the folded FIR rows of one 16-input tile fit
-shared memory (``direct_shared_bytes(L) <= MAX_SHARED``: nchan <=
-:func:`direct_max_nchan` = 559; the pipeline scale is L = 384).  A length
-neither kernel takes (nchan 560-1023, or L >= 2048 without a usable factor
-pair) raises ``ValueError`` for a CUDA tensor; the CPU path answers every
+CUDA tensors launch the kernel :func:`kernel_for` names:
+:func:`pfb_factored` (``kernels/csrc/pfb_quantize.cu``) where
+:func:`..pfb._dft_factors` gives a factor pair the kernel tiles (the
+F-engine scale, L = 2*nchan = 8192 -> (128, 64)); else, in the float32
+mode, :func:`pfb_fft` (``kernels/csrc/pfb_fft.cu``, a factored real FFT in
+float64) at the lengths it is compiled for (:data:`FFT_NCHAN`: the
+pipeline scale, L = 384, and L = 192) where its shared memory holds the
+window (:func:`fft_shared_bytes`); else :func:`pfb_direct`
+(``pfb_quantize.cu``, the folded DFT on the FP64 tensor cores, and the
+only kernel of the bf16 mode below L = 2048) while the folded FIR rows of
+one 16-input tile fit shared memory (``direct_shared_bytes(L) <=
+MAX_SHARED``: nchan <= :func:`direct_max_nchan` = 559).  A length no
+kernel takes (nchan 560-1023, or L >= 2048 without a usable factor pair)
+raises ``ValueError`` for a CUDA tensor; the CPU path answers every
 length.  Tables are built here once per (nchan, precision, device) in the
 layout the kernel reads.
 
@@ -43,6 +49,10 @@ MAX_SHARED = 232448
 FACTORED_SCRATCH_BYTES = 1 << 30
 #: pad floats per staged row of the factored DFT kernel
 FACTORED_PAD = 8
+#: the FFT kernel (``csrc/pfb_fft.cu``): the channel counts it is compiled
+#: for (L = 8 M, M samples a lane) and the warps of a block
+FFT_NCHAN = (96, 192)
+FFT_WARPS = 8
 
 
 def _pad(n: int, m: int) -> int:
@@ -72,6 +82,43 @@ def factored_shared_bytes(L1: int, L2: int) -> int:
     [L2][L1 + 8] floats and the twiddled intermediate's two planes
     [L1][L2 + 8]."""
     return (L2 * (L1 + FACTORED_PAD) + 2 * L1 * (L2 + FACTORED_PAD)) * 4
+
+
+def fft_shared_bytes(nchan: int, ntap: int, ring: bool = True) -> int:
+    """Dynamic shared memory of the FFT kernel (``pfb_fft.cu::fft_smem``):
+    per warp the FIR rows [4][L + 8] as doubles, which the lanes'
+    transforms [32][M/2 + 1] complex overwrite, and four packed rows of
+    nchan + 16 bytes; the window [ntap][L] and its offsets [L] as doubles,
+    the twiddles [8][M/2 + 1] complex and the halved scale [nchan]; for
+    int8 ADC (``ring``) ntap + 3 frames of 8 words x (L + 4)."""
+    L = 2 * nchan
+    M = L // 8
+    warp = max(4 * (L + 8) * 8, 32 * (M // 2 + 1) * 16) + 4 * (nchan + 16)
+    return (FFT_WARPS * warp + (ntap + 1) * L * 8 + 8 * (M // 2 + 1) * 16
+            + nchan * 8 + ((ntap + 3) * 8 * (L + 4) * 4 if ring else 0))
+
+
+def fft_takes(nchan: int, ntap: int, dtype: torch.dtype) -> bool:
+    """True where :func:`pfb_fft` takes the length: nchan in
+    :data:`FFT_NCHAN` and its shared memory (the ring of int8 frames
+    grows with ntap) within ``MAX_SHARED``."""
+    return (nchan in FFT_NCHAN and fft_shared_bytes(
+        nchan, ntap, dtype == torch.int8) <= MAX_SHARED)
+
+
+def fft_twiddles_ref(nchan: int) -> np.ndarray:
+    """The FFT kernel's stage-2 twiddles, float64 [8, nchan / 8 + 1, 2]:
+    entry [j, a] = (cos, -sin)(2 pi j a / L), W_L^(j a) for lane j of a row
+    and the lanes' bin a <= M / 2 (L = 2 nchan = 8 M)."""
+    L = 2 * nchan
+    ang = 2 * np.pi * np.outer(np.arange(8), np.arange(L // 16 + 1)) / L
+    return np.ascontiguousarray(np.stack([np.cos(ang), -np.sin(ang)], -1))
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_twiddles(nchan: int, device: str) -> torch.Tensor:
+    """:func:`fft_twiddles_ref` on ``device``."""
+    return torch.from_numpy(fft_twiddles_ref(nchan)).to(device)
 
 
 def direct_table_ref(nchan: int) -> np.ndarray:
@@ -235,6 +282,42 @@ def pfb_factored(x: torch.Tensor, window, nchan: int, ntap: int, scale,
     return out
 
 
+def pfb_fft(x: torch.Tensor, window, nchan: int, ntap: int, scale,
+            fast: bool = False) -> torch.Tensor:
+    """Launch the factored real-FFT kernel on CUDA tensors (no plain
+    path): the float32 mode at nchan in :data:`FFT_NCHAN` where
+    :func:`fft_takes`; raises ``ValueError`` otherwise, and for ``fast``
+    (the bf16 mode is a DFT matrix product of bf16 operands, which
+    :func:`pfb_direct` computes)."""
+    if fast:
+        raise ValueError("pfb_fft computes the float32 mode only")
+    if not fft_takes(nchan, ntap, x.dtype):
+        raise ValueError(
+            f"the FFT kernel takes nchan in {FFT_NCHAN} within {MAX_SHARED} "
+            f"bytes of shared memory, not nchan = {nchan} at ntap = {ntap}")
+    dev, w, sc, nspec, out = _common_args(x, window, scale, nchan, ntap)
+    if dev.type != "cuda":
+        raise ValueError("pfb_fft launches a CUDA kernel")
+    tw = _fft_twiddles(nchan, str(dev))
+    _build.launch("cbd_pfb_fft", dev, x.data_ptr(), x.stride(0), x.stride(1),
+                  int(x.dtype == torch.int8), x.shape[1], nspec, nchan, ntap,
+                  w.data_ptr(), tw.data_ptr(), sc.data_ptr(), out.data_ptr())
+    pfb_fft.launches += 1
+    return out
+
+
+def kernel_for(x: torch.Tensor, nchan: int, ntap: int, fast: bool):
+    """The launcher :func:`pfb_quantize_packed` takes for CUDA ADC ``x``:
+    :func:`pfb_factored` where L = 2 nchan has a factor pair, else
+    :func:`pfb_fft` in the float32 mode where it takes the length, else
+    :func:`pfb_direct`."""
+    if pfb._dft_factors(2 * nchan) is not None:
+        return pfb_factored
+    if not fast and fft_takes(nchan, ntap, x.dtype):
+        return pfb_fft
+    return pfb_direct
+
+
 def pfb_quantize_packed(x: torch.Tensor, window, nchan: int, ntap: int,
                         scale, fast: bool = False) -> torch.Tensor:
     """Fused PFB + 4-bit requant: ADC [ntime, ninput] (float32 or int8)
@@ -246,21 +329,22 @@ def pfb_quantize_packed(x: torch.Tensor, window, nchan: int, ntap: int,
       fast: bf16 DFT operands with float32 accumulation (the JAX
         ``fast=True``, ``pfb_precision="bf16"``) instead of float32.
 
-    A CUDA tensor launches the factored kernel where L = 2*nchan has a
-    factor pair, else the direct kernel, and raises ``ValueError`` for a
-    length neither takes (nchan 560-1023: ``direct_shared_bytes(L) >
-    MAX_SHARED``; L >= 2048 without a factor pair with L1 % 16 == 0 and
-    L2 % 8 == 0).  A CPU tensor takes the plain version at every length.
+    A CUDA tensor launches :func:`kernel_for`'s kernel and raises
+    ``ValueError`` for a length none takes (nchan 560-1023:
+    ``direct_shared_bytes(L) > MAX_SHARED``; L >= 2048 without a factor
+    pair with L1 % 16 == 0 and L2 % 8 == 0).  A CPU tensor takes the plain
+    version at every length.
     """
     if x.device.type == "cpu":
         w = torch.as_tensor(window)
         _check_adc(x, w, nchan, ntap)
         return pfb.pfb_quantize_packed_ref(x, w, nchan, ntap, scale, fast)
-    if pfb._dft_factors(2 * nchan) is None:
-        return pfb_direct(x, window, nchan, ntap, scale, fast)
-    return pfb_factored(x, window, nchan, ntap, scale, fast)
+    return kernel_for(x, nchan, ntap, fast)(x, window, nchan, ntap, scale,
+                                           fast)
 
 
-#: kernel launches made by :func:`pfb_direct` / :func:`pfb_factored`
+#: kernel launches made by :func:`pfb_direct` / :func:`pfb_factored` /
+#: :func:`pfb_fft`
 pfb_direct.launches = 0
 pfb_factored.launches = 0
+pfb_fft.launches = 0

@@ -17,6 +17,9 @@ script's names, each on the port's counterpart:
   ``ops/pfb_fused.py::pfb_direct`` (the direct channelizer kernel) with
   bf16 or float32 operands, float32 or int8 ADC; bound
   :func:`..utils.roofline.pfb_work` (int8 is ``PERF.md`` row 10's);
+- ``pfb_fft_high_int8``: ``ops/pfb_fused.py::pfb_fft`` (the factored real
+  FFT in float64, the float32 mode's kernel at this length) on the int8
+  ADC, bound as ``pfb_fused_bf16_int8``;
 - ``corr_window``: ``ops/correlate.py::correlate_accumulate`` on CUDA
   tensors, the plain float64 contraction (a library yardstick, no kernel
   of the port's).  Its model counts the packed window in and the two dense
@@ -84,6 +87,7 @@ def stage_models(cfg, nvis_default: int, nvis_prod: int) -> dict:
         "pfb_fused_bf16": pfb_f32,
         "pfb_fused_high": pfb_f32,
         "pfb_fused_bf16_int8": rl.pfb_work(adc, I, T, C, ntap),
+        "pfb_fft_high_int8": rl.pfb_work(adc, I, T, C, ntap),
         "corr_window": (T * C * I + vis_bytes,
                         8 * C * T * I * (I + 1) / 2, "fp64"),
         "beamform_power": rl.beamform_work(C, T, I, B, cfg.ntime_sum,
@@ -133,6 +137,8 @@ def stage_calls(cfg, dev, seed: int = 1) -> tuple[dict, tuple]:
             adc, window, C, ntap, 0.5, fast=False),
         "pfb_fused_bf16_int8": lambda: pfb_fused.pfb_direct(
             adc8, window, C, ntap, 0.5, fast=True),
+        "pfb_fft_high_int8": lambda: pfb_fused.pfb_fft(
+            adc8, window, C, ntap, 0.5),
         "corr_window": lambda: corr.correlate_accumulate(packed, T),
         "beamform_power": lambda: bf.beam_power_sum(
             bf.beamform_gulp(packed, gains), cfg.ntime_sum),

@@ -304,6 +304,11 @@ KERNELS = {
                "pfb_quantize.cu",
         replaces="caltech_bifrost_dsp_tpu/ops/pallas/pfb_fused.py:383",
         tolerance=PFB_TOLERANCE),
+    "pfb_fft": dict(
+        fn=pfb_fused.pfb_fft, route="cuda",
+        source="caltech_bifrost_dsp_tpu_torch/ops/kernels/csrc/pfb_fft.cu",
+        replaces="caltech_bifrost_dsp_tpu/ops/pallas/pfb_fused.py:434",
+        tolerance=PFB_TOLERANCE),
 }
 #: the fused correlator's entry that ``corr_acc(unpack_cache=None)``, and so
 #: the main path, launches; the other schedule runs in the schedules run
@@ -313,6 +318,17 @@ DEFAULT_CORR = "corr_acc_cached" if UNPACK_CACHE_DEFAULT else "corr_acc"
 NO_LIBRARY = None
 #: the FX operating point: int8 ADC, one slow dump after three windows
 FX_CFG = LWA352.replace(adc_dtype="int8", acc_len_slow=7200)
+
+
+def channelizer(cfg) -> str:
+    """The entry of ``KERNELS`` that an FX window at ``cfg`` launches
+    (``ops/pfb_fused.py::kernel_for``)."""
+    x = torch.empty(0, dtype=torch.int8 if cfg.adc_dtype == "int8"
+                    else torch.float32)
+    return pfb_fused.kernel_for(x, cfg.nchan, cfg.pfb_ntap,
+                                cfg.pfb_precision == "bf16").__name__
+
+
 FENGINE_NCHAN, FENGINE_NSPEC = 4096, 240
 TONE_CHAN = 77
 # the production selection plus one malformed pair (stand 400 of 352)
@@ -828,8 +844,10 @@ def check_fx(dev, cfg, records, gains, scale, label: str,
     for w, (ext, prod, fast) in enumerate(records):
         what = f"[FX {label}] window {w}"
         adc = torch.from_numpy(ext).to(dev)
-        packed = pfb_fused.pfb_direct(adc, window, cfg.nchan, cfg.pfb_ntap,
-                                      scale)
+        # the kernel the driver's window took (``channelizer(cfg)``)
+        packed = pfb_fused.pfb_quantize_packed(
+            adc, window, cfg.nchan, cfg.pfb_ntap, scale,
+            cfg.pfb_precision == "bf16")
         pfb_gate(packed, adc, window, cfg.nchan, cfg.pfb_ntap, scale,
                  what=what)
         if noise:
@@ -879,7 +897,7 @@ def run_fx_path(dev, gains_np, window_s: list) -> tuple[dict, float]:
               f"~2.5 codes on noise)", flush=True)
         records, gains, scale, counts = drive_fx(dev, cfg_r, wins, gains_np,
                                                  qs, window_s)
-        for name in ("pfb_direct", DEFAULT_CORR, "beamform_products",
+        for name in (channelizer(cfg_r), DEFAULT_CORR, "beamform_products",
                      "subsel_gather"):
             check(counts[name] > 0, f"[FX {label}] {name} not launched")
         print(f"[FX {label}] kernel launches: {counts}", flush=True)
@@ -1012,6 +1030,46 @@ def phase_pfb_direct(dev, card: str, results: dict) -> None:
     print_kernel(card, "pfb_direct", results["pfb_direct"],
                  "per 2400-spectra window at 704 inputs")
     matmul_yardstick(card, cfg.ninput * cfg.acc_len, L)
+
+
+def phase_pfb_fft(dev, card: str, results: dict) -> None:
+    """The FFT channelizer kernel against its plain version at the
+    production shape (704 inputs x 2400 spectra x 192 channels, int8),
+    scalar and per-channel scale, and its bytes against the direct
+    kernel's (a differing nibble must be a one-code step at a threshold)."""
+    cfg = FX_CFG
+    ntap = cfg.pfb_ntap
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    adc = torch.randint(-90, 91, ((cfg.acc_len + ntap - 1) * 2 * cfg.nchan,
+                                  cfg.ninput),
+                        generator=g, device=dev, dtype=torch.int8)
+    window = torch.from_numpy(pfb.pfb_window(cfg.nchan, ntap)).to(dev)
+    qs = fx_scale_for(adc[:, :8].cpu().numpy(), cfg)
+    per_chan = (torch.rand(cfg.nchan, generator=g, device=dev) * 0.6
+                + 0.7) * qs
+    ntol = ndirect = 0
+    for scale, what in [(qs, "float32"), (per_chan, "float32, per-channel")]:
+        packed = pfb_fused.pfb_fft(adc, window, cfg.nchan, ntap, scale)
+        direct = pfb_fused.pfb_direct(adc, window, cfg.nchan, ntap, scale)
+        torch.cuda.synchronize()
+        ntol += pfb_gate(packed, adc, window, cfg.nchan, ntap, scale,
+                         what=f"pfb_fft {what}")
+        for sl, pre, _ in pfb._ref_chunks(adc, window, cfg.nchan, ntap,
+                                          scale, False):
+            ndirect += pfb.assert_packed_close(packed[sl], direct[sl], pre)
+    print(f"[{card}] pfb_fft: {ndirect} of {4 * packed.numel()} nibbles "
+          "differ from pfb_direct's, each at a threshold", flush=True)
+    results["pfb_fft"].update(
+        **bound(*pfb_work(adc.numel() * adc.element_size(), adc.shape[1],
+                          cfg.acc_len, cfg.nchan, ntap)),
+        max_abs_err=1.0 if ntol else 0.0,
+        ms=cuda_ms(lambda: pfb_fused.pfb_fft(adc, window, cfg.nchan, ntap,
+                                             qs), 5),
+        plain_ms=cuda_ms(lambda: pfb.pfb_quantize_packed_ref(
+            adc, window, cfg.nchan, ntap, qs), 2))
+    print_kernel(card, "pfb_fft", results["pfb_fft"],
+                 "per 2400-spectra window at 704 inputs")
+    ptxas_report(card, {"pfb_fft_kernel": 6})
 
 
 def ptxas_report(card: str, kernels: dict) -> None:
@@ -1744,7 +1802,7 @@ def run_fx_capture(card: str, gains_np, qs: float) -> dict:
         break
     check(pipe.ndump_slow == 1 and all(here[k] == udp[k] for k in here),
           "[capture FX] packets differ from the same samples in process")
-    for name in ("pfb_direct", DEFAULT_CORR, "beamform_products",
+    for name in (channelizer(FX_CFG), DEFAULT_CORR, "beamform_products",
                  "subsel_gather"):
         check(counts[name] > 0, f"[capture FX] {name} not launched")
     npkt = ", ".join(f"{len(v)} {k}" for k, v in udp.items())
@@ -2011,7 +2069,7 @@ def run_mesh_path(dev, card: str, blocks, gains_np, qs: float, truth, slow,
     del ref, ref_slow
     fx.sharded()
     programs = read_counts()
-    for name in ("corr_blk", "pfb_direct", "beamform_products",
+    for name in ("corr_blk", channelizer(FX_CFG), "beamform_products",
                  "subsel_gather"):
         check(programs[name] > 0, f"[mesh] {name} not launched by the "
               "sharded programs")
@@ -2669,7 +2727,7 @@ def run_record_path(dev, card: str, blocks, gains_np, qs: float, truth
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name in (DEFAULT_CORR, "beamform_products", "subsel_gather",
-                 "pfb_direct"):
+                 channelizer(FX_CFG)):
         check(counts[name] > 0, f"[record] {name} not launched")
     print(f"[record] kernel launches: {counts}", flush=True)
     return counts
@@ -3351,7 +3409,7 @@ def run_multihost_path(dev, card: str, block: np.ndarray, gains_np,
         counts = {k: r0["counts"][k] + r1["counts"][k] for k in KERNELS}
         # every process runs its shards' correlator, beamformer and
         # channelizer; the gather runs where shard (0, c) is
-        for name in ("corr_blk", "beamform_products", "pfb_direct"):
+        for name in ("corr_blk", "beamform_products", channelizer(FX_CFG)):
             check(r0["counts"][name] > 0 and r1["counts"][name] > 0,
                   f"{label} {name} not launched in both processes")
         check(counts["subsel_gather"] > 0, f"{label} subsel_gather not "
@@ -3511,8 +3569,9 @@ def run_bench_path(card: str) -> tuple[dict, dict]:
     stages, _ = bench_launches(bench_stages, [],
                                "bench_stages", total)
     names = [r["stage"] for r in stages["stages"]]
-    check(len(names) == 11 and len(set(names)) == 11,
-          f"[bench] bench_stages ran {names}")
+    want = bench_stages.stage_models(LWA352, LWA352.nvis_out,
+                                     LWA352.nvis_out)
+    check(sorted(names) == sorted(want), f"[bench] bench_stages ran {names}")
     for r in stages["stages"]:
         check(STAGE_KEYS <= set(r), f"[bench] stage keys {sorted(r)}")
         check_numbers(r, ("measured_ms", "roofline_ms", "sol_fraction"),
@@ -3666,6 +3725,7 @@ def main() -> int:
     timed(walls, "kernels", phase_kernels, dev, card, results)
     timed(walls, "triu", phase_triu, dev, card, results)
     timed(walls, "pfb_direct", phase_pfb_direct, dev, card, results)
+    timed(walls, "pfb_fft", phase_pfb_fft, dev, card, results)
 
     gains_np = beam_gains_np()
     # path 1, X/B: packed golden input

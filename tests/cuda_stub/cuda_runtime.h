@@ -11,7 +11,8 @@
 // Sources that define CBD_HOST_EMULATION-guarded device functions get the
 // tensor-core instruction lane by lane from here: every lane of a warp
 // publishes its fragment registers, and each lane then computes its own
-// accumulator elements from the PTX fragment layout.
+// accumulator elements from the PTX fragment layout.  __syncwarp waits on
+// the warp's barrier; the double's word intrinsics go through memcpy.
 #pragma once
 #define CBD_HOST_EMULATION 1
 
@@ -62,6 +63,27 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s)
 }
 using std::max;
 using std::min;
+// the words of a double and a double from its words
+inline double __hiloint2double(int hi, int lo)
+{
+    const uint64_t u = (static_cast<uint64_t>(static_cast<uint32_t>(hi))
+                        << 32) | static_cast<uint32_t>(lo);
+    double d;
+    std::memcpy(&d, &u, 8);
+    return d;
+}
+inline int __double2hiint(double d)
+{
+    uint64_t u;
+    std::memcpy(&u, &d, 8);
+    return static_cast<int>(static_cast<uint32_t>(u >> 32));
+}
+inline int __double2loint(double d)
+{
+    uint64_t u;
+    std::memcpy(&u, &d, 8);
+    return static_cast<int>(static_cast<uint32_t>(u));
+}
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -326,3 +348,9 @@ inline void cp_async_wait_but() {}
 #define gridDim cbd_emu::grid_dim
 
 inline void __syncthreads() { cbd_emu::block->all.arrive_and_wait(); }
+// every lane of the warp waits for the others (the mask is not read)
+inline void __syncwarp(unsigned = 0xffffffffu)
+{
+    cbd_emu::block->warp[cbd_emu::linear_tid() / cbd_emu::WARP]
+        ->arrive_and_wait();
+}

@@ -237,12 +237,13 @@ def test_bench_stages_models_are_the_kernel_rows():
     docstring says."""
     models = bench_stages.stage_models(L352, L352.nvis_out, L352.nvis_out)
     for stage, row in (("corr_blk_acc", 7), ("beamform_fused", 2),
-                       ("pfb_fused_bf16_int8", 10), ("subsel_bands", 3)):
+                       ("pfb_fused_bf16_int8", 10), ("pfb_fft_high_int8", 10),
+                       ("subsel_bands", 3)):
         assert round(rl.bound(*models[stage])["bound_ms"], 3) == \
             BOUND_ROWS[row][1]
     assert set(models) == {
         "pfb_fused_bf16", "pfb_fused_high", "pfb_fused_bf16_int8",
-        "corr_window", "beamform_power", "subsel", "subsel_pallas",
+        "pfb_fft_high_int8", "corr_window", "beamform_power", "subsel", "subsel_pallas",
         "subsel_bands", "slow_accum", "corr_blk_acc", "beamform_fused"}
     assert models["corr_window"][2] == models["beamform_power"][2] == "fp64"
     assert rl.bound(*models["slow_accum"])["bound_by"] == "bytes"

@@ -1,5 +1,5 @@
 """Every source under ``csrc/`` (``corr_acc.cu``, ``corr_triu.cu``,
-``corr_rows.cu``, ``subsel_gather.cu``, ``pfb_quantize.cu``,
+``corr_rows.cu``, ``subsel_gather.cu``, ``pfb_quantize.cu``, ``pfb_fft.cu``,
 ``beamform_products.cu``, with the header ``corr_tile.cuh`` they share)
 compiled with g++ against ``tests/cuda_stub/cuda_runtime.h`` and run on
 CPU arrays through their ``extern "C"`` launchers, against the plain
@@ -17,7 +17,10 @@ so that a wrong map cannot hide in noise, and one is all 0x88 (both nibbles
 folded real DFT) runs at ragged spectra and inputs, one and two channel
 passes, int8 and float32 ADC, both precisions, under the packed-byte gate;
 the factored channelizer (both DFT stages on the FP64 MMA, FIR fused in)
-at 1024 channels the same way.  The beamformer (bf16 MMA from a three-term
+at 1024 channels the same way; the FFT channelizer (float64 real FFT, int8
+frames through a shared-memory ring) at 192 and 96 channels, ragged tiles
+and spectrum ranges, both frame load paths, float32 ADC, a structured and
+a near-full-scale ADC, held also to the direct kernel's bytes.  The beamformer (bf16 MMA from a three-term
 split of the gains) runs in both layouts at ragged inputs, beams, time
 tiles and integration lengths against the float64 plain version, and
 bit-exactly with integer gains.  The two gulp correlators run at ragged
@@ -91,14 +94,16 @@ def lib(tmp_path_factory):
 
 def test_every_source_is_emulated():
     """The fixture builds every ``csrc/*.cu`` and binds every launcher:
-    six sources, nine launchers."""
+    seven sources, ten launchers."""
     assert [p.name for p in _build._sources()] == [
         "beamform_products.cu", "corr_acc.cu", "corr_rows.cu",
-        "corr_triu.cu", "pfb_quantize.cu", "subsel_gather.cu"]
+        "corr_triu.cu", "pfb_fft.cu", "pfb_quantize.cu",
+        "subsel_gather.cu"]
     assert sorted(_build.SIGNATURES) == sorted([
         "cbd_beamform_products", "cbd_corr_acc", "cbd_corr_acc_cached",
         "cbd_corr_blk", "cbd_corr_rows", "cbd_corr_triu",
-        "cbd_pfb_direct", "cbd_pfb_factored", "cbd_subsel_gather"])
+        "cbd_pfb_direct", "cbd_pfb_factored", "cbd_pfb_fft",
+        "cbd_subsel_gather"])
 
 
 def block(kind: str, ntime: int, nchan: int, ni: int) -> np.ndarray:
@@ -396,6 +401,111 @@ def test_pfb_direct_emulated_passes_the_gate(lib, nchan, nspec, ninput, dtype,
         fast)
     assert tolerated <= 2
 
+
+
+def fft_adc(kind: str, nchan: int, ntap: int, nspec: int, ninput: int,
+            strided: bool, rng) -> np.ndarray:
+    """ADC [ntime, ninput] for the FFT kernel's cases; ``strided`` takes
+    every second column of one twice as wide."""
+    shape = ((nspec + ntap - 1) * 2 * nchan, ninput * (2 if strided else 1))
+    if kind == "float32":
+        wide = (rng.randn(*shape) * 40).astype(np.float32)
+    elif kind == "int8":
+        wide = rng.randint(-90, 91, shape).astype(np.int8)
+    elif kind == "full":
+        # near full scale: every sample +-(120..128)
+        mag = rng.randint(120, 129, shape)
+        wide = np.where(rng.rand(*shape) < 0.5, -mag,
+                        np.minimum(mag, 127)).astype(np.int8)
+    else:
+        # structured: a distinct value per input and per sample
+        t, i = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]),
+                           indexing="ij")
+        wide = ((7 * i + 13 * t) % 255 - 127).astype(np.int8)
+    return wide[:, ::2] if strided else wide
+
+
+# (nchan, nspec, ninput, kind, strided, per_chan, ntap): 48 inputs take
+# 16-byte frame loads, one full and one half tile; 40 and a strided view
+# take byte loads, 40 a ragged tile; 20 and 16 inputs are one tile, so the
+# stub's three resident blocks split the spectra into ragged ranges
+# (7 -> 3 + 3 + 1, 5 -> 2 + 2 + 1); float32 reads device memory; ntap 4
+# is unrolled at compile time, 2 and 5 loop
+FFT_CASES = [
+    (192, 5, 48, "int8", False, True, 4), (192, 4, 40, "int8", False, False,
+                                           4),
+    (192, 3, 5, "float32", True, True, 4), (192, 3, 32, "structured",
+                                            False, False, 4),
+    (96, 7, 20, "int8", False, True, 4), (96, 5, 16, "full", False, False,
+                                          4),
+    (96, 4, 33, "int8", True, True, 4), (96, 5, 32, "float32", False, False,
+                                         4),
+    (192, 4, 48, "int8", False, False, 2), (96, 5, 20, "int8", True, True,
+                                            5)]
+
+
+@pytest.mark.parametrize("nchan,nspec,ninput,kind,strided,per_chan,ntap",
+                         FFT_CASES)
+def test_pfb_fft_emulated_passes_the_gate(lib, nchan, nspec, ninput, kind,
+                                          strided, per_chan, ntap):
+    """``cbd_pfb_fft`` on CPU arrays, under the packed-byte gate against
+    the float64 plain version and against ``cbd_pfb_direct``'s bytes on
+    the same ADC: a nibble may differ from either by one code only within
+    1e-3 of a rounding threshold, at most twice."""
+    rng = np.random.RandomState(nchan + 10 * ninput + nspec)
+    adc = fft_adc(kind, nchan, ntap, nspec, ninput, strided, rng)
+    window = pfb.pfb_window(nchan, ntap)
+    x = torch.from_numpy(np.ascontiguousarray(adc))
+    w = torch.from_numpy(window)
+    re, _ = pfb.pfb_prequant_ref(x, w, nchan, ntap, 1.0)
+    scale = np.full(nchan, 2.5 / float(re.std()), np.float32)
+    if per_chan:
+        scale *= rng.uniform(0.7, 1.3, nchan).astype(np.float32)
+    is_int8 = int(adc.dtype == np.int8)
+    st = (adc.strides[0] // adc.itemsize, adc.strides[1] // adc.itemsize)
+    tw = pfb_fused.fft_twiddles_ref(nchan)
+    out = np.full((ninput, nspec, nchan), 0xAA, np.uint8)
+    rc = lib.cbd_pfb_fft(ptr(adc), *st, is_int8, ninput, nspec, nchan, ntap,
+                         ptr(window), ptr(tw), ptr(scale), ptr(out), None)
+    assert rc == 0
+    got = torch.from_numpy(out)
+    tolerated = pfb.assert_packed_matches_ref(
+        got, x, w, nchan, ntap, torch.from_numpy(scale))
+    assert tolerated <= 2
+    table = np.ascontiguousarray(pfb_fused.direct_table_ref(nchan))
+    direct = np.full_like(out, 0x55)
+    rc = lib.cbd_pfb_direct(
+        ptr(adc), *st, is_int8, ninput, nspec, nchan, ntap, ptr(window),
+        ptr(table), table.shape[1] * pfb_fused.DIRECT_KS,
+        table.shape[0] * pfb_fused.DIRECT_CPASS, ptr(scale), 0, ptr(direct),
+        None)
+    assert rc == 0
+    pre = pfb.pfb_prequant_ref(x, w, nchan, ntap, torch.from_numpy(scale))
+    assert pfb.assert_packed_close(got, torch.from_numpy(direct), pre) <= 2
+
+
+def test_pfb_fft_refuses_what_it_does_not_take(lib):
+    """Channel counts it is not compiled for, ntap past its shared memory,
+    an output that is not 16-byte aligned."""
+    nchan, ninput = 192, 16
+    window = pfb.pfb_window(nchan, 8)
+    tw = pfb_fused.fft_twiddles_ref(nchan)
+    scale = np.ones(nchan, np.float32)
+    adc = np.zeros((10 * 2 * nchan, ninput), np.int8)
+    out = np.zeros(ninput * 2 * nchan + 16, np.uint8)
+    skip = (16 - out.ctypes.data % 16) % 16
+
+    def call(nchan, ntap, offset=skip):
+        return lib.cbd_pfb_fft(ptr(adc), ninput, 1, 1, ninput, 1, nchan,
+                               ntap, ptr(window), ptr(tw), ptr(scale),
+                               ptr(out) + offset, None)
+
+    assert call(192, 4) == 0
+    assert call(184, 4) != 0 and call(128, 4) != 0
+    ntap_max = max(t for t in range(1, 9)
+                   if pfb_fused.fft_takes(nchan, t, torch.int8))
+    assert call(192, ntap_max) == 0 and call(192, ntap_max + 1) != 0
+    assert call(192, 4, skip + 1) != 0
 
 
 @pytest.mark.parametrize(

@@ -1,24 +1,29 @@
-"""The channelizer kernel (``ops/kernels/csrc/pfb_quantize.cu``) against its
-float64 plain version, on the card.
+"""The channelizer kernels (``ops/kernels/csrc/pfb_quantize.cu``,
+``pfb_fft.cu``) against their float64 plain version, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device.  On a GPU host
 without JAX run ``python -m pytest --noconftest
 tests/test_torch_pfb_kernels.py``.  Ragged shapes (L = 368, spectra not a
-multiple of the block's 3, inputs not a multiple of its 16, one spectrum,
-200 channels = two channel passes of the direct kernel, 435 channels = its
-one-spectrum blocks), both DFT modes and both precisions, scalar and
+multiple of the block's 3, inputs not a multiple of its 16 or of the FFT
+kernel's 32, one spectrum, 200 channels = two channel passes of the direct
+kernel, 435 channels = its one-spectrum blocks), every DFT mode (direct,
+factored, the FFT at 192 and 96 channels) and both precisions, scalar and
 per-channel scales, int8 against float32 ADC, a structured ADC (tones and
 a ramp, distinct per input), and one production-width case per mode with
-the threshold-case count held to 1e-6 of the codes.  Gate: every differing nibble is one step from the
-reference at a value within 1e-3 of the rounding threshold, and such
-threshold cases are at most 1e-6 of the values (1e-5 in bf16 mode, where
-an operand on a bf16 rounding tie may round either way), plus 2.
+the threshold-case count held to 1e-6 of the codes; at the pipeline width
+the FFT kernel's bytes against the direct kernel's on three seeds, and
+which kernel each call launches.  Gate: every differing nibble is one step
+from the reference at a value within 1e-3 of the rounding threshold, and
+such threshold cases are at most 1e-6 of the values (1e-5 in bf16 mode,
+where an operand on a bf16 rounding tie may round either way), plus 2.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from caltech_bifrost_dsp_tpu_torch import config as C
+from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 from caltech_bifrost_dsp_tpu_torch.ops import pfb, pfb_fused
 
 torch.set_num_threads(1)
@@ -68,7 +73,7 @@ def check(got, x, w, nchan, ntap, scale, fast):
 @pytest.mark.parametrize("nchan,nspec,ninput", [
     (184, 13, 130), (192, 5, 33), (16, 9, 70), (4096, 5, 130),
     (2048, 3, 35), (200, 4, 17), (435, 2, 20), (192, 1, 16), (192, 7, 704),
-    (184, 5, 48)])
+    (184, 5, 48), (96, 11, 70)])
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("per_chan", [False, True])
 def test_kernel_matches_plain(dev, nchan, nspec, ninput, fast, per_chan):
@@ -76,8 +81,7 @@ def test_kernel_matches_plain(dev, nchan, nspec, ninput, fast, per_chan):
     x = _adc(dev, nchan, ntap, nspec, ninput, "float32", nchan + ninput)
     w = torch.from_numpy(pfb.pfb_window(nchan, ntap)).to(dev)
     scale = _scale(x, w, nchan, ntap, per_chan, nspec)
-    fn = (pfb_fused.pfb_direct if pfb._dft_factors(2 * nchan) is None
-          else pfb_fused.pfb_factored)
+    fn = pfb_fused.kernel_for(x, nchan, ntap, fast)
     before = fn.launches
     got = pfb_fused.pfb_quantize_packed(x, w, nchan, ntap, scale, fast)
     torch.cuda.synchronize()
@@ -85,7 +89,7 @@ def test_kernel_matches_plain(dev, nchan, nspec, ninput, fast, per_chan):
     check(got, x, w, nchan, ntap, scale, fast)
 
 
-@pytest.mark.parametrize("nchan", [184, 4096])
+@pytest.mark.parametrize("nchan", [184, 4096, 192, 96])
 @pytest.mark.parametrize("fast", [False, True])
 def test_int8_bytes_equal_f32_bytes(dev, nchan, fast):
     ntap = 4
@@ -195,3 +199,67 @@ def test_production_width(dev, nchan, nspec, fast):
     got = pfb_fused.pfb_quantize_packed(x, w, nchan, ntap, scale, fast)
     torch.cuda.synchronize()
     check(got, x, w, nchan, ntap, scale, fast)
+
+
+@pytest.mark.parametrize("seed", [11, 2147483659, 3000000019])
+def test_fft_bytes_against_direct_at_pipeline_width(dev, seed):
+    """704 inputs x 2400 spectra x 192 channels of int8 ADC through the
+    FFT kernel and the direct kernel: the codes that differ are counted
+    (expected near 0: the two differ by their float32 DFT tables and sum
+    order) and must be at most 1e-6 of the nibbles, each one step apart at
+    a value within 1e-3 of a rounding threshold."""
+    nchan, ntap, nspec, ninput = 192, 4, 2400, 704
+    x = _adc(dev, nchan, ntap, nspec, ninput, "int8", seed % (1 << 62))
+    w = torch.from_numpy(pfb.pfb_window(nchan, ntap)).to(dev)
+    scale = _scale(x, w, nchan, ntap, True, seed % (1 << 31))
+    got = pfb_fused.pfb_fft(x, w, nchan, ntap, scale)
+    direct = pfb_fused.pfb_direct(x, w, nchan, ntap, scale)
+    torch.cuda.synchronize()
+    tolerated = 0
+    for sl, pre, _ in pfb._ref_chunks(x, w, nchan, ntap, scale, False):
+        tolerated += pfb.assert_packed_close(got[sl], direct[sl], pre)
+    print(f"seed {seed}: {tolerated} of {2 * got.numel()} nibbles differ "
+          f"from the direct kernel")
+    assert tolerated <= 1e-6 * 2 * got.numel()
+
+
+def test_which_kernel_each_call_launches(dev):
+    """The float32 mode at 192 and 96 channels launches the FFT kernel
+    (int8 and float32 ADC); the bf16 mode, a length it is not compiled for
+    and an int8 ring past its shared memory launch the direct kernel."""
+    def launches(nchan, ntap, fast, dtype):
+        x = _adc(dev, nchan, ntap, 2, 40, dtype, nchan)
+        w = torch.from_numpy(pfb.pfb_window(nchan, ntap)).to(dev)
+        before = (pfb_fused.pfb_fft.launches, pfb_fused.pfb_direct.launches)
+        pfb_fused.pfb_quantize_packed(x, w, nchan, ntap, 0.1, fast)
+        torch.cuda.synchronize()
+        return (pfb_fused.pfb_fft.launches - before[0],
+                pfb_fused.pfb_direct.launches - before[1])
+
+    assert launches(192, 4, False, "int8") == (1, 0)
+    assert launches(192, 4, False, "float32") == (1, 0)
+    assert launches(96, 1, False, "int8") == (1, 0)
+    assert launches(192, 4, True, "int8") == (0, 1)
+    assert launches(184, 4, False, "int8") == (0, 1)
+    assert not pfb_fused.fft_takes(192, 8, torch.int8)
+    assert launches(192, 8, False, "int8") == (0, 1)
+    assert launches(192, 8, False, "float32") == (1, 0)
+
+
+def test_fx_step_at_pipeline_width_launches_the_fft_kernel(dev):
+    """One FX window at the pipeline's 192 channels and 704 inputs: the
+    channelizer is the FFT kernel alone."""
+    cfg = C.LWA352.replace(ntime_gulp=48, acc_len=48, acc_len_slow=96,
+                           adc_dtype="int8")
+    _, _, gains, pairs = px.default_inputs(cfg, device=dev)
+    x = _adc(dev, cfg.nchan, cfg.pfb_ntap, cfg.ntime_gulp, cfg.ninput,
+             "int8", 7)
+    w = torch.from_numpy(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap)).to(dev)
+    before = (pfb_fused.pfb_fft.launches, pfb_fused.pfb_direct.launches,
+              pfb_fused.pfb_factored.launches)
+    px.fx_step(px.init_state(cfg, dev), x, w, 1.0, gains, pairs, True, True,
+               True, cfg)
+    torch.cuda.synchronize()
+    assert (pfb_fused.pfb_fft.launches - before[0],
+            pfb_fused.pfb_direct.launches - before[1],
+            pfb_fused.pfb_factored.launches - before[2]) == (1, 0, 0)
