@@ -15,6 +15,7 @@ correlation and beam packet emitters.
 - :class:`PBeamOutput`: per-beam PBEAM streams (beamform_output_block.py).
 - :class:`IBeamOutput`: IBEAM voltage packets, burst-throttled to 0.6 Gb/s
   (beamform_vlbi_output_block.py:202-275).
+- :class:`ProductKeeper`: every product kept on the host, none sent.
 - :class:`TriggeredDump`: the transient voltage recorder's writer, the
   history ring to self-describing files (triggered_dump_block.py); the
   files equal the JAX writer's byte for byte.
@@ -492,6 +493,47 @@ class IBeamOutput:
                                      chan0=self.cfg.chan0, seq=seq0 + t)
                 out(pk.encode_ibeam(hdr, vlbi[t]))
         return out.npkt
+
+
+class ProductKeeper:
+    """A sink of every product that keeps them on the host instead of
+    sending them, for the CLI's ``--save-slow``, tests and the smoke run.
+
+    Each product is kept under the spectra index it starts at: ``slow``
+    and ``subsel`` hold (real, imag) planes, ``power`` the PBEAM powers
+    [nbeam//2, nblock, nchan, 4] and ``vlbi`` the voltages [ntime, nchan,
+    nbeam, 2], as the driver hands them over.  ``keep`` bounds each to
+    its newest ``keep`` entries.  One keeper may sit in all four of the
+    driver's sink lists."""
+
+    checkfile = None
+
+    def __init__(self, keep: int | None = None):
+        self.keep = keep
+        self.slow: dict = {}
+        self.subsel: dict = {}
+        self.power: dict = {}
+        self.vlbi: dict = {}
+
+    def _put(self, kept: dict, seq0: int, value) -> int:
+        kept[seq0] = value
+        while self.keep is not None and len(kept) > self.keep:
+            del kept[next(iter(kept))]
+        return 0
+
+    def send_matrix_planes(self, vis_re, vis_im, sync_time, spectra_id,
+                           acc_len) -> int:
+        return self._put(self.slow, spectra_id, (vis_re, vis_im))
+
+    def send_subsel(self, subsel_re, subsel_im, baselines, sync_time,
+                    spectra_id, acc_len) -> int:
+        return self._put(self.subsel, spectra_id, (subsel_re, subsel_im))
+
+    def send_powers(self, power, seq0, navg) -> int:
+        return self._put(self.power, seq0, power)
+
+    def send_voltages(self, vlbi, seq0) -> int:
+        return self._put(self.vlbi, seq0, vlbi)
 
 
 class TriggeredDump:

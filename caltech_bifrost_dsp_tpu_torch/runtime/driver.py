@@ -92,7 +92,6 @@ from ..utils.proclog import PerfTimer
 from ..verification import golden
 from .arming import Action, IntegrationController
 from .ring import HistoryRing, Ring
-from .runner import fx_scale
 
 
 class CorrCommandBlock(CommandBlock):
@@ -216,6 +215,16 @@ class SubselCommandBlock(CommandBlock):
         self.update_command_vals()
         self._set(self.command_vals["baselines"])
         return True
+
+
+def fx_scale(quant_scale: float, eq_gains=None) -> np.ndarray:
+    """Requant gain of the FX step: ``eq_gains * quant_scale`` per channel
+    (float32 product), or ``quant_scale`` alone (the JAX driver's
+    FEngine block, driver.py:197-204)."""
+    scale = np.float32(quant_scale)
+    if eq_gains is not None and len(eq_gains):
+        return np.asarray(eq_gains, np.float32) * scale
+    return np.asarray(scale)
 
 
 class FEngineCommandBlock(CommandBlock):

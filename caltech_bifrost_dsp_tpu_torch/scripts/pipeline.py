@@ -234,19 +234,6 @@ def load_eq_gains(path: str | None, nchan: int):
     return gains.tolist()
 
 
-class SlowDumpKeeper:
-    """A full-correlation sink that keeps the last slow dump's planes."""
-
-    checkfile = None
-
-    def __init__(self):
-        self.planes = None
-
-    def send_matrix_planes(self, vis_re, vis_im, *args) -> int:
-        self.planes = (vis_re, vis_im)
-        return 0
-
-
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit 2 on a combination of flags that cannot run, or that the
     configuration refuses."""
@@ -295,7 +282,7 @@ def build_config(args) -> XEngineConfig:
 
 
 def build_pipeline(args, mesh=None
-                   ) -> tuple[XEnginePipeline, SlowDumpKeeper | None]:
+                   ) -> tuple[XEnginePipeline, sink.ProductKeeper | None]:
     cfg = build_config(args)
     CommandBlock.set_id(args.pipelineid)
     store = connect(args.etcdhost)
@@ -338,7 +325,7 @@ def build_pipeline(args, mesh=None
             use_cor_fmt=args.cor_fmt))
     keeper = None
     if args.save_slow:
-        keeper = SlowDumpKeeper()
+        keeper = sink.ProductKeeper(keep=1)
         corr_outputs.append(keeper)
     subsel_outputs = []
     if args.subsel_dest:
@@ -401,9 +388,9 @@ def main(argv=None) -> int:
         pipe.monitor_bridge.stop()
         if hasattr(pipe.source, "close"):
             pipe.source.close()
-    if keeper is not None and keeper.planes is not None:
-        np.savez(args.save_slow, real=keeper.planes[0],
-                 imag=keeper.planes[1])
+    if keeper is not None and keeper.slow:
+        (real, imag), = keeper.slow.values()
+        np.savez(args.save_slow, real=real, imag=imag)
     print(f"{pipe.ndump_fast} fast dumps, {pipe.ndump_slow} slow dumps in "
           f"{time.perf_counter() - t0:.3f} s on {args.device}")
     rc = 0

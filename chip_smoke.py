@@ -13,16 +13,18 @@ also timed alone, as a CUDA graph of bare launches, beside its wrapper),
 then drives eleven paths of the port, each with the kernel launch counts
 set to 0 just before it and read just after:
 
-- X/B: :class:`XEngineRunner` over the golden input stream (seed
-  0xdeadbeef), three fast windows at 192 channels, then the port's
+- X/B: the served :class:`XEnginePipeline` over the golden input stream
+  (seed 0xdeadbeef), three fast windows at 192 channels, every product
+  kept by a ``ProductKeeper`` sink and each fast dump's matrix read where
+  the compute thread queues it, then the port's
   golden-parity gate (``scripts/gpu_parity.py``, the JAX package's
   ``scripts/tpu_parity.py`` at its full depth) in process: ``xengine_step``
   with ``TPU_ENGINES`` in the padded chan-major staging over three golden
   windows at 192 channels and three at 184, every fast, slow, subselection
   and VLBI element exact against the host's truth, and its FX leg, the
   direct channelizer against a float64 host PFB;
-- FX: :class:`XEngineRunner` in FX mode on int8 ADC, three windows and a
-  slow dump at 192 channels, one at 184, one with float32 ADC (bytes equal
+- FX: :class:`XEnginePipeline` in FX mode on int8 ADC, three windows and
+  a slow dump at 192 channels, one at 184, one with float32 ADC (bytes equal
   to the int8 run's) and one tone window; per window the channelizer's
   bytes are gated against the float64 plain version, the X/B products are
   held exactly against the plain versions on those bytes, and the code
@@ -71,8 +73,8 @@ golden windows without and with a 10-frame history ring (649 MB) on a
 ``kv://`` store served in process, a trigger through the port's
 ``PipelineControl`` while the ring fills and one after the run; every file
 byte for byte the golden gulps at its ``seq0``, the two windows of the
-second replayed through :class:`XEngineRunner` (fast dump, subselection
-and VLBI exact against the plain products) and written again with O_DIRECT
+second replayed through the driver (fast dump, subselection and VLBI
+exact against the plain products) and written again with O_DIRECT
 (bytes equal); one int8 FX window with a 5-frame ADC ring, its dump equal
 to the ADC fed in and its replay giving the live run's packed bytes and
 fast dump exactly; then ``xeng_manager --serve-kv`` as a subprocess
@@ -226,7 +228,6 @@ from caltech_bifrost_dsp_tpu_torch.parallel import mesh as pm
 from caltech_bifrost_dsp_tpu_torch.parallel import multihost
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
 from caltech_bifrost_dsp_tpu_torch.runtime.ring import HistoryRing
-from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
 from caltech_bifrost_dsp_tpu_torch.scripts import (bench_ingest,
                                                    bench_pipeline,
                                                    bench_scaling,
@@ -684,29 +685,53 @@ def golden_windows(cfg, nwin: int) -> list:
         nwin * cfg.acc_len, cfg.nchan, cfg.nstand, cfg.npol, cfg.acc_len))
 
 
-def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
-    """Drive XEngineRunner over golden windows; hold every product against
-    the plain versions on the card (anchored to the host truth on 4
-    channels per window)."""
+def kept_driver(cfg, src, gains_np, pairs, ngulp: int, **kw) -> tuple:
+    """The served driver on the card over ``ngulp`` gulps of ``src``, every
+    product handed to one ``sink.ProductKeeper`` and each fast dump's
+    matrix cloned where the compute thread queues it.  The gains (numpy
+    real and imaginary planes) and the input pairs (on the card; None for
+    the default selection) are set on the command blocks as a coefficient
+    load and a baseline command would leave them; ``kw`` goes to the
+    pipeline.  Returns the pipeline, the keeper and the fast matrices."""
+    CommandBlock.reset_instance_counts()
+    kept = sink.ProductKeeper()
+    pipe = XEnginePipeline(cfg, src, sync_time=SYNC_TIME, corr_outputs=[kept],
+                           subsel_outputs=[kept], pbeam_outputs=[kept],
+                           ibeam_outputs=[kept], device="cuda", **kw)
+    pipe.beam_cmd.gains_active[...] = gains_np[0] + 1j * gains_np[1]
+    if pairs is not None:
+        pipe.subsel_cmd.pairs_device = pairs
+    fast = []
+    emit = pipe._emit
+
+    def keep_fast(out, t, dec, slow_dec):
+        n = pipe.ndump_fast
+        emit(out, t, dec, slow_dec)
+        if pipe.ndump_fast > n:
+            fast.append(Vis(*(p.clone() for p in pipe._dense("fast"))))
+
+    pipe._emit = keep_fast
+    pipe.run(ngulp, timeout_s=600)
+    torch.cuda.synchronize()
+    return pipe, kept, fast
+
+
+def run_geometry(dev, cfg, blocks: list, gains_np) -> None:
+    """Drive the served driver over golden windows; hold every product
+    against the plain versions on the card (anchored to the host truth on
+    4 channels per window)."""
     ni = cfg.ninput
     nwin = len(blocks)
     gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
     pairs = torch.from_numpy(PAIRS).to(dev)
-    runner = XEngineRunner(cfg, "cuda", gains=gains, subsel_pairs=PAIRS)
-
-    def stream():
-        for w, block in enumerate(blocks):
-            for k in range(cfg.acc_len // cfg.ntime_gulp):
-                gulp = block[k * cfg.ntime_gulp:(k + 1) * cfg.ntime_gulp]
-                yield ((w * cfg.acc_len + k * cfg.ntime_gulp),
-                       gulp.reshape(cfg.ntime_gulp, cfg.nchan, ni))
-
-    it = runner.run(stream())
+    pipe, kept, fast = kept_driver(cfg, GoldenSource(cfg, blocks), gains_np,
+                                   pairs, nwin * cfg.acc_len // cfg.ntime_gulp)
+    starts = [w * cfg.acc_len for w in range(nwin)]
+    check(list(kept.vlbi) == starts and len(fast) == nwin,
+          f"{cfg.nchan}c: step calls at {list(kept.vlbi)}, {len(fast)} fast "
+          f"dumps, for {nwin} windows")
     slow_plain = None
-    for w, block in enumerate(blocks):
-        t0 = time.perf_counter()
-        prod = next(it)
-        window_s.append(time.perf_counter() - t0)
+    for w, (block, t) in enumerate(zip(blocks, starts)):
         packed = torch.from_numpy(block.reshape(cfg.acc_len, cfg.nchan,
                                                 ni)).to(dev)
         xc = chan_major(packed, "tci")
@@ -715,31 +740,29 @@ def run_geometry(dev, cfg, blocks: list, gains_np, window_s: list) -> None:
         check(np.array_equal(plain.real[:4].cpu().numpy(), hvr)
               and np.array_equal(plain.imag[:4].cpu().numpy(), hvi),
               "plain correlator vs host truth on 4 channels")
-        fast = dense_vis(runner.state.vis_fast, cfg)
-        check(torch.equal(fast.real, plain.real)
-              and torch.equal(fast.imag, plain.imag),
+        check(vis_equal(fast[w], plain),
               f"{cfg.nchan}c window {w}: fast dump vs plain")
         want = cs.corr_subsel_ref(plain, pairs, cfg.nchan_sum)
-        check(np.array_equal(prod["subsel"][0], want.real.cpu().numpy())
-              and np.array_equal(prod["subsel"][1], want.imag.cpu().numpy()),
+        check(np.array_equal(kept.subsel[t][0], want.real.cpu().numpy())
+              and np.array_equal(kept.subsel[t][1], want.imag.cpu().numpy()),
               f"{cfg.nchan}c window {w}: subsel vs plain")
         wp, wv = bf.beamform_products_ref(xc, gains, cfg.ntime_sum)
-        check(np.array_equal(prod["vlbi"], wv.cpu().numpy()),
+        check(np.array_equal(kept.vlbi[t], wv.cpu().numpy()),
               f"{cfg.nchan}c window {w}: VLBI not exact")
-        check(power_close(torch.from_numpy(prod["bf_power"]), wp.cpu()),
+        check(power_close(torch.from_numpy(kept.power[t]), wp.cpu()),
               f"{cfg.nchan}c window {w}: beam power vs plain")
         slow_plain = plain if slow_plain is None else slow_plain + plain
-        print(f"[runner {cfg.nchan}c] window {w}: fast, subsel, VLBI exact; "
-              f"power within rtol 1e-4 ({window_s[-1]:.3f} s in the runner)",
-              flush=True)
-        del packed, xc, fast, plain
-    check(next(it, None) is None, "runner yielded more calls than windows")
-    check("vis_slow" in prod, f"{cfg.nchan}c: no slow dump")
-    sr, si = prod["vis_slow"]
+        print(f"[driver {cfg.nchan}c] window {w}: fast, subsel, VLBI exact; "
+              f"power within rtol 1e-4", flush=True)
+        del packed, xc, plain
+    del fast
+    check(list(kept.slow) == [0] and pipe.ndump_slow == 1,
+          f"{cfg.nchan}c: slow dumps at {list(kept.slow)}")
+    sr, si = kept.slow[0]
     check(np.array_equal(sr, slow_plain.real.cpu().numpy())
           and np.array_equal(si, slow_plain.imag.cpu().numpy()),
           f"{cfg.nchan}c: slow dump vs plain")
-    print(f"[runner {cfg.nchan}c] slow dump after {nwin} windows: exact",
+    print(f"[driver {cfg.nchan}c] slow dump after {nwin} windows: exact",
           flush=True)
 
 
@@ -799,37 +822,39 @@ def adc_windows(cfg, nwin: int, seed: int) -> list:
             for _ in range(nwin)]
 
 
-def drive_fx(dev, cfg, windows: list, gains_np, quant_scale: float,
-             window_s: list):
-    """One FX path run: counts to 0, XEngineRunner in FX mode over the
-    windows, counts read.  Records per window the ADC with its FIR history,
-    the products and a copy of the fast accumulator."""
+def drive_fx(dev, cfg, windows: list, gains_np, quant_scale: float):
+    """One FX path run: counts to 0, the served driver in FX mode over the
+    windows, counts read.  Records per window the ADC behind the FIR
+    history it goes up with (zeros, then the window before's last
+    frames), the products (the slow dump with the last window's) and the
+    fast matrix."""
     zero_counts()
-    gains = bf.BeamGains(*(torch.from_numpy(x[:cfg.nchan]).to(dev)
-                           for x in gains_np))
-    runner = XEngineRunner(cfg, dev, gains=gains, subsel_pairs=PAIRS,
-                           fx=True, quant_scale=quant_scale)
-    g = cfg.ntime_gulp * 2 * cfg.nchan
-
-    def stream():
-        for w, adc in enumerate(windows):
-            for k in range(cfg.acc_len // cfg.ntime_gulp):
-                yield (w * cfg.acc_len + k * cfg.ntime_gulp,
-                       adc[k * g:(k + 1) * g])
-
-    it = runner.run(stream())
+    gains_np = [x[:cfg.nchan] for x in gains_np]
+    pipe, kept, fast = kept_driver(
+        cfg, AdcWindowSource(cfg, windows), gains_np,
+        torch.from_numpy(PAIRS).to(dev),
+        len(windows) * cfg.acc_len // cfg.ntime_gulp, fx_mode=True,
+        quant_scale=quant_scale)
+    counts = read_counts()
+    starts = [w * cfg.acc_len for w in range(len(windows))]
+    check(list(kept.vlbi) == starts and len(fast) == len(windows),
+          f"FX driver: step calls at {list(kept.vlbi)}, {len(fast)} fast "
+          f"dumps, for {len(windows)} windows")
+    k = pipe._adc_tail.shape[0]
+    tail = np.zeros((k, cfg.ninput), windows[0].dtype)
     records = []
-    for adc in windows:
-        ext = np.concatenate([runner.adc_tail, adc])
-        t0 = time.perf_counter()
-        prod = next(it)
-        window_s.append(time.perf_counter() - t0)
-        fast = Vis(runner.state.vis_fast.real.clone(),
-                   runner.state.vis_fast.imag.clone())
-        records.append((ext, prod, fast))
-    check(next(it, None) is None, "FX runner yielded more calls than windows")
-    torch.cuda.synchronize()
-    return records, gains, runner.scale, read_counts()
+    for adc, t, vis in zip(windows, starts, fast):
+        prod = {"subsel": kept.subsel[t], "vlbi": kept.vlbi[t],
+                "bf_power": kept.power[t]}
+        records.append((np.concatenate([tail, adc]), prod, vis))
+        tail = adc[len(adc) - k:]
+    check(np.array_equal(pipe._adc_tail, tail),
+          "FX driver: the FIR history after the run is not the last "
+          "window's last frames")
+    if list(kept.slow) == [0]:
+        records[-1][1]["vis_slow"] = kept.slow[0]
+    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
+    return records, gains, pipe.feng_cmd.scale_device, counts
 
 
 def check_fx(dev, cfg, records, gains, scale, label: str,
@@ -841,7 +866,7 @@ def check_fx(dev, cfg, records, gains, scale, label: str,
     window = torch.from_numpy(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap)).to(dev)
     pairs = torch.from_numpy(PAIRS).to(dev)
     slow_plain, out = None, []
-    for w, (ext, prod, fast) in enumerate(records):
+    for w, (ext, prod, dense) in enumerate(records):
         what = f"[FX {label}] window {w}"
         adc = torch.from_numpy(ext).to(dev)
         # the kernel the driver's window took (``channelizer(cfg)``)
@@ -854,9 +879,7 @@ def check_fx(dev, cfg, records, gains, scale, label: str,
             code_histogram(packed, what)
         xc = chan_major(packed.permute(1, 2, 0).contiguous(), "tci")
         plain = correlate_chan_major(xc)
-        dense = dense_vis(fast, cfg)
-        check(torch.equal(dense.real, plain.real)
-              and torch.equal(dense.imag, plain.imag),
+        check(vis_equal(dense, plain),
               f"{what}: fast dump vs plain on the kernel's bytes")
         want = cs.corr_subsel_ref(plain, pairs, cfg.nchan_sum)
         check(np.array_equal(prod["subsel"][0], want.real.cpu().numpy())
@@ -871,7 +894,7 @@ def check_fx(dev, cfg, records, gains, scale, label: str,
         print(f"{what}: fast, subsel, VLBI exact; power within rtol 1e-4",
               flush=True)
         out.append(packed)
-        del adc, xc, plain, dense
+        del adc, xc, plain
     check("vis_slow" in prod, f"[FX {label}]: no slow dump")
     sr, si = prod["vis_slow"]
     check(np.array_equal(sr, slow_plain.real.cpu().numpy())
@@ -882,7 +905,7 @@ def check_fx(dev, cfg, records, gains, scale, label: str,
     return out
 
 
-def run_fx_path(dev, gains_np, window_s: list) -> tuple[dict, float]:
+def run_fx_path(dev, gains_np) -> tuple[dict, float]:
     """The FX path: 3 int8 windows + slow dump at 192 channels, one window
     at 184, one with float32 ADC, one tone window.  Returns the launch
     counts summed over the runs and the requant gain."""
@@ -896,7 +919,7 @@ def run_fx_path(dev, gains_np, window_s: list) -> tuple[dict, float]:
         print(f"[FX {label}] requant gain {qs:.6g} (pre-quantization rms "
               f"~2.5 codes on noise)", flush=True)
         records, gains, scale, counts = drive_fx(dev, cfg_r, wins, gains_np,
-                                                 qs, window_s)
+                                                 qs)
         for name in (channelizer(cfg_r), DEFAULT_CORR, "beamform_products",
                      "subsel_gather"):
             check(counts[name] > 0, f"[FX {label}] {name} not launched")
@@ -1184,12 +1207,14 @@ def phase_gulp(dev, card: str, results: dict, name: str, fn, ref,
 
 
 class GoldenSource(SyntheticSource):
-    """The golden stream gulp by gulp from pre-generated windows, for the
+    """The golden stream gulp by gulp from pre-generated windows, or a
+    recorder file's frames, from spectra index ``seq0`` on, for the
     driver's zero-copy ingest (``fill_into``)."""
 
-    def __init__(self, cfg, blocks):
+    def __init__(self, cfg, blocks, seq0: int = 0):
         super().__init__(cfg)
         g = cfg.ntime_gulp
+        self.seq0 = seq0
         self.gulps = [b.reshape(-1, cfg.nchan, cfg.ninput)[k:k + g]
                       for b in blocks for k in range(0, len(b), g)]
 
@@ -1197,7 +1222,7 @@ class GoldenSource(SyntheticSource):
         i = self._fill_i
         self._fill_i += 1
         dest.reshape(self.gulps[i].shape)[...] = self.gulps[i]
-        return i * self.cfg.ntime_gulp
+        return self.seq0 + i * self.cfg.ntime_gulp
 
     def stream(self, ngulp: int, seq0: int = 0):
         for i in range(ngulp):
@@ -1720,23 +1745,25 @@ def cor_slow_dump_alone(card: str, slow, ref: "DriverRun") -> float:
 
 
 class AdcWindowSource(ADCSource):
-    """Given int8 ADC samples gulp by gulp, for the driver's zero-copy
-    ingest (``fill_into``)."""
+    """Given windows of ADC samples in ``cfg.adc_dtype``, gulp by gulp,
+    for the driver's zero-copy ingest (``fill_into``)."""
 
-    def __init__(self, cfg, adc: np.ndarray):
+    def __init__(self, cfg, windows: list):
         super().__init__(cfg)
-        self.adc = adc
+        n = self.samples_per_gulp
+        self.gulps = [w[k:k + n] for w in windows
+                      for k in range(0, len(w) - n + 1, n)]
 
     def fill_into(self, dest):
-        n, i = self.samples_per_gulp, self._fill_i
+        i = self._fill_i
         self._fill_i += 1
-        dest.view(np.int8).reshape(n, -1)[...] = self.adc[i * n:(i + 1) * n]
+        dest.view(self.dtype).reshape(self.gulps[i].shape)[...] = \
+            self.gulps[i]
         return i * self.cfg.ntime_gulp
 
     def stream(self, ngulp: int, seq0: int = 0):
-        n = self.samples_per_gulp
         for i in range(ngulp):
-            yield seq0 + i * self.cfg.ntime_gulp, self.adc[i * n:(i + 1) * n]
+            yield seq0 + i * self.cfg.ntime_gulp, self.gulps[i]
 
 
 def fx_driver(cfg, src, qs: float, gains_np, **kw
@@ -1776,7 +1803,7 @@ def run_fx_capture(card: str, gains_np, qs: float) -> dict:
           f"({ngulp} gulps) of int8 ADC ({adc.nbytes} B) at the full "
           f"{cfg.ninput} inputs x {cfg.nchan} channels, for the time limit",
           flush=True)
-    pipe, here = fx_driver(cfg, AdcWindowSource(cfg, adc), qs, gains_np)
+    pipe, here = fx_driver(cfg, AdcWindowSource(cfg, [adc]), qs, gains_np)
     pipe.run(ngulp, timeout_s=600)
     frames = adc.view(np.uint8).reshape(cfg.acc_len, 2 * cfg.nchan,
                                         cfg.ninput)
@@ -2262,34 +2289,35 @@ def subsel_matches(cfg, sub: list, truth: list, what: str) -> None:
 
 
 def replay_xb(dev, cfg, files, gains_np, truth, fast_plain) -> None:
-    """Each file through XEngineRunner on the card: the fast dump equal to
-    the plain correlator's for its window, subselection and VLBI exact,
-    power within rtol 1e-4."""
-    gains = bf.BeamGains(*(torch.from_numpy(x).to(dev) for x in gains_np))
-    pairs = cs.baselines_to_inputs(DRIVER_BASELINES)
+    """Each file through the served driver on the card, its frames from
+    the file's ``seq0`` with both integrators armed there: the fast dump
+    equal to the plain correlator's for its window, subselection and VLBI
+    exact, power within rtol 1e-4."""
+    pairs = torch.from_numpy(cs.baselines_to_inputs(
+        DRIVER_BASELINES).astype(np.int32)).to(dev)
     for f in files:
-        src = TriggerFileSource(str(f))
-        w = src.header["seq0"] // cfg.acc_len
-        runner = XEngineRunner(cfg, dev, gains=gains, subsel_pairs=pairs,
-                               autostartat=src.header["seq0"])
-        prods = list(runner.run(src.gulps(cfg.ntime_gulp)))
-        check(len(prods) == 1, f"replay of {Path(f).name}: {len(prods)} "
-              "calls")
-        prod = prods[0]
-        fast = dense_vis(runner.state.vis_fast, cfg)
-        check(vis_equal(fast, fast_plain[w]),
+        hdr, data = TriggerFileSource(str(f)).read()
+        seq0 = hdr["seq0"]
+        w = seq0 // cfg.acc_len
+        _, kept, fast = kept_driver(
+            cfg, GoldenSource(cfg, [data], seq0=seq0), gains_np, pairs,
+            len(data) // cfg.ntime_gulp, autostartat=seq0)
+        check(list(kept.vlbi) == [seq0] and len(fast) == 1,
+              f"replay of {Path(f).name}: step calls at {list(kept.vlbi)}, "
+              f"{len(fast)} fast dumps")
+        check(vis_equal(fast[0], fast_plain[w]),
               f"replay of window {w}: fast dump vs plain")
         want = truth[w]
-        check(np.array_equal(prod["subsel"][0], want["sub"][0])
-              and np.array_equal(prod["subsel"][1], want["sub"][1]),
+        check(np.array_equal(kept.subsel[seq0][0], want["sub"][0])
+              and np.array_equal(kept.subsel[seq0][1], want["sub"][1]),
               f"replay of window {w}: subsel vs plain")
-        check(np.array_equal(prod["vlbi"], want["vlbi"]),
+        check(np.array_equal(kept.vlbi[seq0], want["vlbi"]),
               f"replay of window {w}: VLBI not exact")
-        check(power_close(torch.from_numpy(prod["bf_power"]), want["power"]),
+        check(power_close(torch.from_numpy(kept.power[seq0]), want["power"]),
               f"replay of window {w}: beam power vs plain")
-        print(f"[record] replay of {Path(f).name} (window {w}) through "
-              "XEngineRunner: fast dump, subsel and VLBI exact, power "
-              "within rtol 1e-4", flush=True)
+        print(f"[record] replay of {Path(f).name} (window {w}) through the "
+              "driver: fast dump, subsel and VLBI exact, power within rtol "
+              "1e-4", flush=True)
 
 
 def run_recorder_xb(dev, card: str, blocks, gains_np, truth, tmp: Path
@@ -2411,9 +2439,9 @@ def run_recorder_xb(dev, card: str, blocks, gains_np, truth, tmp: Path
 def run_recorder_fx(dev, card: str, gains_np, qs: float, tmp: Path) -> None:
     """One int8 FX window at full width with the ADC history ring (5
     frames): the dump, triggered through the client, equals the ADC fed
-    in, and its replay through XEngineRunner(fx=True) gives the live run's
-    packed bytes and fast dump exactly (the dump starts at the stream's
-    first frame, where the live FIR history was zero, as the runner's)."""
+    in, and its replay through the FX driver gives the live run's packed
+    bytes and fast dump exactly (the dump starts at the stream's first
+    frame, where the live FIR history was zero, as the replay's)."""
     cfg = FX_CFG.replace(acc_len_slow=FX_CFG.acc_len)
     adc = adc_windows(cfg, 1, SEED + 7)[0]
     ngulp = cfg.acc_len // cfg.ntime_gulp
@@ -2431,7 +2459,7 @@ def run_recorder_fx(dev, card: str, gains_np, qs: float, tmp: Path) -> None:
     live_fast = []
     pfb.channelize_pack_imajor = keep("live")
     try:
-        pipe, _ = fx_driver(cfg, AdcWindowSource(cfg, adc), qs, gains_np,
+        pipe, _ = fx_driver(cfg, AdcWindowSource(cfg, [adc]), qs, gains_np,
                             history_nbyte=ngulp * frame_nbyte,
                             device=dev.type)
         check(pipe.history.nframe == ngulp, "[record FX] ring frames")
@@ -2456,26 +2484,23 @@ def run_recorder_fx(dev, card: str, gains_np, qs: float, tmp: Path) -> None:
               and np.array_equal(data, adc),
               "[record FX] dumped ADC differs from the ADC fed in")
         pfb.channelize_pack_imajor = keep("replay")
-        runner = XEngineRunner(
-            cfg, dev, gains=bf.BeamGains(*(torch.from_numpy(x).to(dev)
-                                           for x in gains_np)),
-            fx=True, quant_scale=qs)
-        n = adc.shape[0] // ngulp
-        prods = list(runner.run((k * cfg.ntime_gulp, data[k * n:(k + 1) * n])
-                                for k in range(ngulp)))
+        _, kept, replay_fast = kept_driver(
+            cfg, AdcWindowSource(cfg, [data]), gains_np, None, ngulp,
+            fx_mode=True, quant_scale=qs)
     finally:
         pfb.channelize_pack_imajor = channelize
-    check(len(prods) == 1 and len(live_fast) == 1,
-          f"[record FX] {len(prods)} replay calls, {len(live_fast)} live "
-          "dumps")
+    check(list(kept.vlbi) == [0] and len(replay_fast) == 1
+          and len(live_fast) == 1,
+          f"[record FX] replay calls at {list(kept.vlbi)}, "
+          f"{len(replay_fast)} replay and {len(live_fast)} live dumps")
     check(torch.equal(packed["replay"], packed["live"]),
           "[record FX] replayed packed bytes differ from the live run's")
-    check(vis_equal(dense_vis(runner.state.vis_fast, cfg), live_fast[0]),
+    check(vis_equal(replay_fast[0], live_fast[0]),
           "[record FX] replayed fast dump differs from the live run's")
     os.remove(files[0])
     print(f"[record FX] the dump ({data.nbytes} B of int8 ADC) equals the "
-          "ADC fed in; its replay through XEngineRunner(fx=True) gives the "
-          "live run's packed bytes and fast dump exactly", flush=True)
+          "ADC fed in; its replay through the FX driver gives the live "
+          "run's packed bytes and fast dump exactly", flush=True)
     print(f"[{card}] HistoryRing.push of an FX frame "
           f"({frame_nbyte / 1e6:.1f} MB of int8 ADC): {clock.push_ms():.3f} "
           f"ms (median of {len(clock.lengths)})", flush=True)
@@ -3731,9 +3756,8 @@ def main() -> int:
     # path 1, X/B: packed golden input
     blocks = golden_windows(DRIVER_CFG, 3)
     zero_counts()
-    window_s = []
     t1 = time.perf_counter()
-    run_geometry(dev, DRIVER_CFG, blocks, gains_np, window_s)
+    run_geometry(dev, DRIVER_CFG, blocks, gains_np)
     walls["X/B"] = time.perf_counter() - t1
     # the golden-parity gate: the production step against the host's truth
     t1 = time.perf_counter()
@@ -3749,8 +3773,7 @@ def main() -> int:
         check(xb[name] > 0, f"kernel {name} not launched by the X/B path")
     print(f"X/B path kernel launches: {xb}", flush=True)
     # path 2, FX: raw ADC through the channelizer
-    fx_window_s = []
-    fx, qs = timed(walls, "FX", run_fx_path, dev, gains_np, fx_window_s)
+    fx, qs = timed(walls, "FX", run_fx_path, dev, gains_np)
     # path 3, F-engine: the channelizer alone at 4096 channels
     fe = timed(walls, "F-engine", run_fengine, dev, card, results)
     # path 4, the operator entry point's threaded driver
@@ -3809,9 +3832,6 @@ def main() -> int:
           f"(corr_triu.cu + in-place adds): {triu_ms:.3f} ms; default "
           f"engines (corr_acc.cu, {DEFAULT_CORR}): {step_ms:.3f} ms",
           flush=True)
-    print(f"[{card}] XEngineRunner host time per window (H2D from pinned "
-          f"memory, step, products to numpy): "
-          + ", ".join(f"{s:.3f} s" for s in window_s), flush=True)
     del packed
     fcfg = FX_CFG
     L = 2 * fcfg.nchan
@@ -3830,9 +3850,6 @@ def main() -> int:
           f"per window of {fcfg.acc_len / fcfg.spectra_rate_hz * 1e3:.1f} ms "
           f"of sky; {msps:.2f} Msamples/s per input against the "
           f"{bar:.3f} bar ({msps / bar:.2f}x)", flush=True)
-    print(f"[{card}] XEngineRunner FX host time per window (ADC into pinned "
-          f"memory, H2D, fx_step, products to numpy): "
-          + ", ".join(f"{s:.3f} s" for s in fx_window_s), flush=True)
 
     walls["step times"] = time.perf_counter() - t1
     print(f"[{card}] wall time by phase: "

@@ -285,25 +285,41 @@ def test_golden_checkfile_gate(tmp_path):
                                   w.imag.transpose(1, 2, 3, 4, 0))
 
 
-def test_per_gulp_mode_equals_batched():
-    cfg = PCFG
-    runs = []
+@pytest.mark.parametrize("fx", [False, True], ids=["xb", "fx"])
+def test_per_gulp_mode_equals_batched(fx):
+    """One step call a window gives the packets of one step call a gulp.
+    In FX mode the window's call goes up behind the FIR history of the
+    window before it, and the per-gulp calls carry the history gulp to
+    gulp: both end on the last gulp's last (ntap - 1) frames."""
+    cfg = port_cfg(FX_CFG) if fx else PCFG
+    ngulp = 2 * cfg.acc_len_slow // cfg.ntime_gulp
+    runs, tails = [], []
     for batch in (True, False):
         CommandBlock.reset_instance_counts()
         got = Collect()
         store = MemoryStore()
-        pp = XEnginePipeline(cfg, source.SyntheticSource(
-            cfg, mode="random", seed=41), store=store, device="cpu",
-            sync_time=SYNC, batch_accumulations=batch,
-            **sinks(sink, cfg, got))
+        src = (source.ADCSource(cfg, amplitude=40.0, seed=41) if fx
+               else source.SyntheticSource(cfg, mode="random", seed=41))
+        pp = XEnginePipeline(cfg, src, store=store, device="cpu",
+                             sync_time=SYNC, batch_accumulations=batch,
+                             fx_mode=fx, quant_scale=0.1,
+                             **sinks(sink, cfg, got))
         load_gains(pp, store, cfg, 42)
-        pp.run(2 * cfg.acc_len_slow // cfg.ntime_gulp, timeout_s=300)
+        pp.run(ngulp, timeout_s=300)
         runs.append(got)
+        tails.append(pp._adc_tail if fx else None)
+    assert runs[0].cor and runs[0].sub
     assert runs[0].cor == runs[1].cor and runs[0].sub == runs[1].sub
     # per-gulp calls emit the beams gulp by gulp: same packets, another
     # order across beams
     assert runs[0].ib == runs[1].ib
     assert sorted(runs[0].pb) == sorted(runs[1].pb)
+    if fx:
+        src = source.ADCSource(cfg, amplitude=40.0, seed=41)
+        *_, gulp = (src.gulp(i) for i in range(ngulp))
+        want = gulp[len(gulp) - (cfg.pfb_ntap - 1) * 2 * cfg.nchan:]
+        np.testing.assert_array_equal(tails[0], want)
+        np.testing.assert_array_equal(tails[1], want)
 
 
 @pytest.mark.parametrize("arg", ["mesh", "history_nbyte", "dump_direct"])

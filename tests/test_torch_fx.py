@@ -1,7 +1,7 @@
 """The port's FX path vs the JAX package: ``fx_step`` against
-``fx_step_jit`` over a full fast+slow flag cycle, the runner in FX mode
-against the JAX driver's semantics, ``ADCSource`` byte for byte, and the
-CLI's FX flags.
+``fx_step_jit`` over a full fast+slow flag cycle, the served driver in FX
+mode against the JAX driver's semantics, ``ADCSource`` byte for byte, and
+the CLI's FX flags.
 
 Gates: packed channelizer bytes through ``assert_packed_close``; fast,
 slow and subselection exact int32; beam power and VLBI rtol 1e-4 with
@@ -18,6 +18,7 @@ against the JAX step on the port's bytes, and (c) the whole JAX
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -37,9 +38,10 @@ from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.io import source as psource
 from caltech_bifrost_dsp_tpu_torch.models import xengine as px
 from caltech_bifrost_dsp_tpu_torch.ops import pfb
-from caltech_bifrost_dsp_tpu_torch.runtime.runner import (XEngineRunner,
-                                                          fx_scale)
+from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
+from caltech_bifrost_dsp_tpu_torch.runtime.driver import fx_scale
 from caltech_bifrost_dsp_tpu_torch.scripts import pipeline
+from torch_kept_run import kept_pipeline, kept_run
 
 torch.set_num_threads(1)
 
@@ -54,7 +56,7 @@ ENGINES = {"tpu": dict(C.TPU_ENGINES, pfb_engine="pallas",
 T, F = True, False
 CYCLE = [(T, F, F), (F, F, F), (F, T, T), (T, T, F), (T, F, F), (F, T, F),
          (T, T, T)]
-# a small config for the runner: two gulps per fast window, two fast
+# a small config for the driver: two gulps per fast window, two fast
 # windows per slow window
 RCFG = C.XEngineConfig(nstand=8, nchan=16, ntime_gulp=48, acc_len=96,
                        acc_len_slow=192, nbeam=2, ntime_sum=12, nchan_sum=4,
@@ -66,7 +68,7 @@ def port_cfg(jcfg):
     return TC.XEngineConfig(**dataclasses.asdict(jcfg))
 
 
-#: the runner's config on the port's side
+#: the driver's config on the port's side
 PRCFG = port_cfg(RCFG)
 
 
@@ -222,123 +224,108 @@ def _gulps(cfg, n, seed=21):
     return [(i * cfg.ntime_gulp, src.gulp(i)) for i in range(n)]
 
 
-def test_runner_fx_whole_window_equals_per_gulp():
-    """One call per window with the FIR history staged in front equals
-    per-gulp fx_step calls that carry the history themselves (the
-    runner's per-gulp fallback)."""
-    cfg = PRCFG
-    gulps = _gulps(cfg, 8)
-    runner = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
-    whole = list(runner.run(iter(gulps)))
-    assert len(whole) == 4 and runner.ndump_slow == 2
-    w = torch.from_numpy(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap))
-    state = px.init_state(cfg)
-    tail = np.zeros((3 * 2 * cfg.nchan, cfg.ninput), np.int8)
-    for k, prod in enumerate(whole):
-        outs = []
-        for j, (_, gulp) in enumerate(gulps[2 * k:2 * k + 2]):
-            block = np.concatenate([tail, gulp])
-            tail = gulp[len(gulp) - len(tail):]
-            state, out = px.fx_step(
-                state, torch.from_numpy(block), w, 0.1, runner.gains,
-                runner.subsel_pairs, j == 0, j == 1, k % 2 == 0, cfg)
-            outs.append(out)
-        np.testing.assert_array_equal(prod["subsel"][0],
-                                      outs[1].subsel.real.numpy())
-        np.testing.assert_array_equal(prod["subsel"][1],
-                                      outs[1].subsel.imag.numpy())
-        close(prod["vlbi"], torch.cat([o.vlbi for o in outs]))
-        close(prod["bf_power"], torch.cat([o.bf_power for o in outs], 1))
-        if "vis_slow" in prod:
-            dense = px.dense_vis(state.vis_slow, cfg)
-            np.testing.assert_array_equal(prod["vis_slow"][0],
-                                          dense.real.numpy())
-            np.testing.assert_array_equal(prod["vis_slow"][1],
-                                          dense.imag.numpy())
-    np.testing.assert_array_equal(runner.adc_tail, tail)
+class _Listed(psource.ADCSource):
+    """Given (t, gulp) pairs as the driver's source, through ``stream()``
+    (the reference's TriggerReplay, a source of recorded gulps)."""
+
+    def __init__(self, cfg, pairs):
+        super().__init__(cfg)
+        self.pairs = pairs
+
+    def stream(self, ngulp, seq0=0):
+        return iter(self.pairs[:ngulp])
+
+
+def _fx_source(cfg, seed):
+    """The ADC of :func:`_gulps` with ``seed``, as the driver's source."""
+    return psource.ADCSource(cfg, mode="noise", amplitude=40.0, seed=seed)
 
 
 def test_runner_fx_matches_jax_stream():
-    """Whole-window calls with the carried FIR history equal JAX
-    ``fx_step_jit`` fed the driver's ``concat(tail, block)``."""
+    """The served driver's whole-window calls with the carried FIR history
+    equal JAX ``fx_step_jit`` fed the driver's ``concat(tail, block)``."""
     cfg = PRCFG
     jcfg = RCFG.replace(pfb_fft_impl="matmul")
     gulps = _gulps(cfg, 8, seed=22)
     gr, gi, pairs = gains_pairs(cfg, 23)
-    runner = XEngineRunner(cfg, "cpu", gains=px.gains_from_numpy(gr, gi),
-                           subsel_pairs=pairs, fx=True, quant_scale=0.1)
+    pipe, kept = kept_run(cfg, _fx_source(cfg, 22), 8, gains=gr + 1j * gi,
+                          pairs=pairs, fx_mode=True, quant_scale=0.1)
     w = jnp.asarray(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap))
     jg = JGains(jnp.asarray(gr), jnp.asarray(gi))
     jstate = jx.init_state(jcfg)
     tail = np.zeros(((cfg.pfb_ntap - 1) * 2 * cfg.nchan, cfg.ninput),
                     np.int8)
     gpw = cfg.acc_len // cfg.ntime_gulp
-    for k, prod in enumerate(runner.run(iter(gulps))):
+    assert list(kept.vlbi) == [k * cfg.acc_len for k in range(4)]
+    for k, t in enumerate(kept.vlbi):
         block = np.concatenate([g for _, g in gulps[k * gpw:(k + 1) * gpw]])
         jstate, jo = jx.fx_step_jit(
             jstate, jnp.asarray(np.concatenate([tail, block])), w,
             jnp.float32(0.1), jg, jnp.asarray(pairs), T, T, k % 2 == 0,
             jcfg)
         tail = block[len(block) - len(tail):]
-        np.testing.assert_array_equal(prod["subsel"][0],
+        np.testing.assert_array_equal(kept.subsel[t][0],
                                       np.asarray(jo.subsel.real))
-        np.testing.assert_array_equal(prod["subsel"][1],
+        np.testing.assert_array_equal(kept.subsel[t][1],
                                       np.asarray(jo.subsel.imag))
-        close(prod["bf_power"], jo.bf_power)
-        close(prod["vlbi"], jo.vlbi)
-        if "vis_slow" in prod:
+        close(kept.power[t], jo.bf_power)
+        close(kept.vlbi[t], jo.vlbi)
+        if k % 2:
             want = jx.dense_vis(jstate.vis_slow, jcfg)
-            np.testing.assert_array_equal(prod["vis_slow"][0],
-                                          np.asarray(want.real))
-            np.testing.assert_array_equal(prod["vis_slow"][1],
-                                          np.asarray(want.imag))
-    assert runner.ndump_slow == 2
+            slow = kept.slow[t - cfg.acc_len]
+            np.testing.assert_array_equal(slow[0], np.asarray(want.real))
+            np.testing.assert_array_equal(slow[1], np.asarray(want.imag))
+    assert pipe.ndump_slow == 2
 
 
 def test_runner_fx_history_resets_on_new_sequence():
     """After a sequence break the FIR history restarts at zero (the JAX
-    driver's test_fx_tail_resets_on_sequence_break): products after the
-    break equal a fresh runner's on the same gulps."""
+    driver's test_fx_tail_resets_on_sequence_break): the history each
+    window goes up with is zero at the start and after the break, and the
+    products after the break equal a fresh pipeline's on the same
+    gulps."""
     cfg = PRCFG
     g = cfg.ntime_gulp
-    gulps = _gulps(cfg, 10, seed=24)
-    tails = []
-    runner = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
-    orig = runner._upload
-
-    def spy(gs):
-        tails.append(runner.adc_tail.copy())
-        return orig(gs)
-
-    runner._upload = spy
-    first = list(runner.run(iter(gulps[:4])))
+    gulps = _gulps(cfg, 8, seed=24)
+    gr, gi, _ = gains_pairs(cfg, 25)
     gap = 10_000 * g
-    runner.new_sequence(gap)
-    assert not np.any(runner.adc_tail)
+    # the integrators re-arm 10 windows past the break
     recover = (gap // cfg.acc_len + 10) * cfg.acc_len
-    after = [(recover + i * g, x) for i, (_, x) in enumerate(gulps[4:8])]
-    second = list(runner.run(iter(after)))
-    assert len(first) == 2 and len(second) == 2
+    skipped = [(t, gulps[4][1]) for t in range(gap, recover, g)]
+    after = [(recover + i * g, x) for i, (_, x) in enumerate(gulps[4:])]
+    stream = gulps[:4] + skipped + after
+    pipe, kept = kept_pipeline(cfg, _Listed(cfg, stream), gains=gr + 1j * gi,
+                               fx_mode=True, quant_scale=0.1)
+    tails = []
+    upload = pipe._upload
+
+    def spy(spans):
+        tails.append(pipe._adc_tail.copy())
+        return upload(spans)
+
+    pipe._upload = spy
+    pipe.run(len(stream), timeout_s=300)
+    assert list(kept.vlbi) == [0, cfg.acc_len, recover,
+                               recover + cfg.acc_len]
     assert not np.any(tails[0]) and np.any(tails[1])
     assert not np.any(tails[2]) and np.any(tails[3])
-    fresh = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1,
-                          autostartat=recover)
-    for a, b in zip(second, fresh.run(iter(after))):
-        np.testing.assert_array_equal(a["vlbi"], b["vlbi"])
-        if "subsel" in a:
-            np.testing.assert_array_equal(a["subsel"][0], b["subsel"][0])
+    _, fresh = kept_run(cfg, _Listed(cfg, after), len(after),
+                        gains=gr + 1j * gi, fx_mode=True, quant_scale=0.1,
+                        autostartat=recover)
+    assert list(fresh.vlbi) == [recover, recover + cfg.acc_len]
+    for t in fresh.vlbi:
+        np.testing.assert_array_equal(kept.vlbi[t], fresh.vlbi[t])
+        np.testing.assert_array_equal(kept.subsel[t][0], fresh.subsel[t][0])
 
 
 def test_runner_fx_single_tap_history_stays_empty():
     cfg = PRCFG.replace(pfb_ntap=1)
-    runner = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
-    assert runner.adc_tail.shape == (0, cfg.ninput)
-    list(runner.run(iter(_gulps(cfg, 2))))
-    assert runner.adc_tail.shape == (0, cfg.ninput)
-    assert runner.ndump_fast == 1
-    with pytest.raises(ValueError, match="adc_tail"):
-        XEngineRunner(PRCFG, "cpu", fx=True,
-                      adc_tail=np.zeros((5, RCFG.ninput), np.int8))
+    pipe, _ = kept_pipeline(cfg, _fx_source(cfg, 21), fx_mode=True,
+                            quant_scale=0.1)
+    assert pipe._adc_tail.shape == (0, cfg.ninput)
+    pipe.run(2, timeout_s=300)
+    assert pipe._adc_tail.shape == (0, cfg.ninput)
+    assert pipe.ndump_fast == 1
 
 
 def test_runner_fx_eq_gains_equal_per_channel_scale():
@@ -350,32 +337,64 @@ def test_runner_fx_eq_gains_equal_per_channel_scale():
     np.testing.assert_array_equal(fx_scale(0.1, eq), vec)
     assert fx_scale(0.1).shape == () and fx_scale(0.1, []).shape == ()
     gulps = _gulps(cfg, 2, seed=26)
-    runner = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1, eq_gains=eq)
-    prod = next(runner.run(iter(gulps)))
+    gr, gi, _ = gains_pairs(cfg, 27)
+    pipe, kept = kept_run(cfg, _fx_source(cfg, 26), 2, gains=gr + 1j * gi,
+                          fx_mode=True, quant_scale=0.1, eq_gains=eq)
+    np.testing.assert_array_equal(pipe.feng_cmd.scale_device.numpy(), vec)
     block = np.concatenate([np.zeros((3 * 2 * cfg.nchan, cfg.ninput),
                                      np.int8)] + [x for _, x in gulps])
     w = torch.from_numpy(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap))
     _, want = px.fx_step(px.init_state(cfg), torch.from_numpy(block), w,
-                         torch.from_numpy(vec), runner.gains,
-                         runner.subsel_pairs, T, T, T, cfg)
-    np.testing.assert_array_equal(prod["vlbi"], want.vlbi.numpy())
-    np.testing.assert_array_equal(prod["subsel"][0], want.subsel.real.numpy())
+                         torch.from_numpy(vec), px.gains_from_numpy(gr, gi),
+                         pipe.subsel_cmd.pairs_device, T, T, T, cfg)
+    np.testing.assert_array_equal(kept.vlbi[0], want.vlbi.numpy())
+    np.testing.assert_array_equal(kept.subsel[0][0], want.subsel.real.numpy())
 
 
-def test_runner_starts_from_jax_tail():
-    """A JAX driver's ``_adc_tail`` starts the port's runner at the same
-    point: equal to running the previous gulps through the runner."""
+def test_fx_history_carried_across_a_partial_window():
+    """A ``Corr`` command that moves the fast window lands after its batch
+    size was fixed, so the window runs as per-gulp step calls (the
+    fallback), each uploading the FIR history the gulp before it left:
+    together they equal one ``fx_step`` over the history and the three
+    gulps."""
     cfg = PRCFG
-    gulps = _gulps(cfg, 4, seed=27)
-    full = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1)
-    prods = list(full.run(iter(gulps)))
-    prev = gulps[1][1]
-    tail = prev[len(prev) - 3 * 2 * cfg.nchan:]
-    resumed = XEngineRunner(cfg, "cpu", fx=True, quant_scale=0.1,
-                            adc_tail=tail, autostartat=2 * cfg.ntime_gulp)
-    (prod,) = list(resumed.run(iter(gulps[2:])))
-    np.testing.assert_array_equal(prod["vlbi"], prods[1]["vlbi"])
-    np.testing.assert_array_equal(prod["subsel"][0], prods[1]["subsel"][0])
+    g = cfg.ntime_gulp
+    k = (cfg.pfb_ntap - 1) * 2 * cfg.nchan
+    gulps = _gulps(cfg, 5, seed=28)
+    gr, gi, pairs = gains_pairs(cfg, 29)
+    store = MemoryStore()
+    pipe, kept = kept_pipeline(cfg, _fx_source(cfg, 28), gains=gr + 1j * gi,
+                               pairs=pairs, store=store, fx_mode=True,
+                               quant_scale=0.1)
+    stage_loads = pipe.beam_cmd.stage_loads
+
+    def command_at_start(t):
+        # staged after the first window's commands were applied, so it
+        # lands at the second window, once its batch size is fixed
+        if t == 0:
+            store.put(pipe.corr_cmd.command_key, json.dumps({
+                "cmd": "update", "id": "acc", "val": {"kwargs": {
+                    "start_time": 2 * g, "acc_len": 3 * g}}}))
+        return stage_loads(t)
+
+    pipe.beam_cmd.stage_loads = command_at_start
+    pipe.run(5, timeout_s=300)
+    assert list(kept.vlbi) == [0, 2 * g, 3 * g, 4 * g]
+    assert list(kept.subsel) == [0, 2 * g]
+    block = np.concatenate([gulps[1][1][-k:]] + [x for _, x in gulps[2:]])
+    w = torch.from_numpy(pfb.pfb_window(cfg.nchan, cfg.pfb_ntap))
+    _, want = px.fx_step(px.init_state(cfg), torch.from_numpy(block), w, 0.1,
+                         px.gains_from_numpy(gr, gi), torch.from_numpy(pairs),
+                         T, T, F, cfg)
+    np.testing.assert_array_equal(kept.subsel[2 * g][0],
+                                  want.subsel.real.numpy())
+    np.testing.assert_array_equal(kept.subsel[2 * g][1],
+                                  want.subsel.imag.numpy())
+    close(np.concatenate([kept.vlbi[t] for t in (2 * g, 3 * g, 4 * g)]),
+          want.vlbi)
+    close(np.concatenate([kept.power[t] for t in (2 * g, 3 * g, 4 * g)], 1),
+          want.bf_power)
+    np.testing.assert_array_equal(pipe._adc_tail, gulps[4][1][-k:])
 
 
 def test_cli_fx_tone_lands_in_channel(tmp_path):

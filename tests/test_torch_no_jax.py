@@ -51,7 +51,6 @@ import caltech_bifrost_dsp_tpu_torch.parallel.multihost
 import caltech_bifrost_dsp_tpu_torch.runtime.arming
 import caltech_bifrost_dsp_tpu_torch.runtime.driver
 import caltech_bifrost_dsp_tpu_torch.runtime.ring
-import caltech_bifrost_dsp_tpu_torch.runtime.runner
 import caltech_bifrost_dsp_tpu_torch.scripts.arm_correlator
 import caltech_bifrost_dsp_tpu_torch.scripts.beam_rx
 import caltech_bifrost_dsp_tpu_torch.scripts.bench_fx
@@ -88,8 +87,6 @@ from caltech_bifrost_dsp_tpu_torch.io.sink import CorrPartOutput
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
 from caltech_bifrost_dsp_tpu_torch.parallel.mesh import make_mesh
 from caltech_bifrost_dsp_tpu_torch.runtime.driver import XEnginePipeline
-from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
-XEngineRunner(TINY.replace(adc_dtype="int8"), "cpu", fx=True)
 cfg = TINY.replace(corr_engine="pallas_triu", subsel_engine="pallas")
 pkts = []
 pipe = XEnginePipeline(cfg, SyntheticSource(cfg, mode="random"),

@@ -299,19 +299,6 @@ def test_cli_fx_capture_refuses_float32_like_jax():
     assert "int8" in str(mine.value)
 
 
-class Grab:
-    """A full-correlation sink that keeps every slow dump's planes."""
-
-    checkfile = None
-
-    def __init__(self):
-        self.dumps = []
-
-    def send_matrix_planes(self, vis_re, vis_im, *args) -> int:
-        self.dumps.append((np.array(vis_re), np.array(vis_im)))
-        return 0
-
-
 def test_fx_udp_adc_matches_inprocess_source():
     """int8 ADC frames over the snap2 wire (AdcCaptureSource) through the
     FX pipeline: the dumps of the same samples fed in process, 0 lost."""
@@ -331,7 +318,7 @@ def test_fx_udp_adc_matches_inprocess_source():
                                  npol_per_pkt=cfg.ninput, delay_ns=20_000)
 
     th = threading.Thread(target=tx)
-    udp = Grab()
+    udp = sink.ProductKeeper()
     pipe = XEnginePipeline(cfg, src, corr_outputs=[udp], quant_scale=0.2,
                            fx_mode=True, device="cpu")
     th.start()
@@ -342,13 +329,13 @@ def test_fx_udp_adc_matches_inprocess_source():
         stats = src.stats()
         src.close()
     assert stats["nmissing"] == 0
-    here = Grab()
+    here = sink.ProductKeeper()
     XEnginePipeline(cfg, source.ADCSource(cfg, mode="tone", tone_chan=9,
                                           amplitude=50.0),
                     corr_outputs=[here], quant_scale=0.2, fx_mode=True,
                     device="cpu").run(ngulp, timeout_s=300)
-    assert len(udp.dumps) == len(here.dumps) == 1
-    for a, b in zip(udp.dumps[0], here.dumps[0]):
+    assert len(udp.slow) == len(here.slow) == 1
+    (got,), (want,) = udp.slow.values(), here.slow.values()
+    for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
-    assert np.diagonal(udp.dumps[0][0], axis1=1, axis2=2)[:, 0].argmax() \
-        == 9
+    assert np.diagonal(got[0], axis1=1, axis2=2)[:, 0].argmax() == 9

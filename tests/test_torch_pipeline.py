@@ -1,9 +1,11 @@
-"""The port's source, golden tools, runner and CLI vs the JAX package.
+"""The port's source, golden tools, served driver and CLI vs the JAX
+package.
 
 The golden CLI gate: JAX ``make_golden`` writes the files, the port's CLI
 (``--device cpu``) must exit 0 on them and 1 on a corrupted corr file."""
 
 import dataclasses
+import json
 
 import socket
 
@@ -22,9 +24,10 @@ from caltech_bifrost_dsp_tpu_torch import config as TC
 from caltech_bifrost_dsp_tpu_torch.io import native
 from caltech_bifrost_dsp_tpu_torch.io.source import SyntheticSource
 from caltech_bifrost_dsp_tpu_torch.ops import corr_subsel as cs
-from caltech_bifrost_dsp_tpu_torch.runtime.runner import XEngineRunner
+from caltech_bifrost_dsp_tpu_torch.control.store import MemoryStore
 from caltech_bifrost_dsp_tpu_torch.scripts import pipeline
 from caltech_bifrost_dsp_tpu_torch.verification import golden
+from torch_kept_run import kept_pipeline, kept_run
 
 torch.set_num_threads(1)
 
@@ -157,75 +160,79 @@ def _truth(gulps, nchan_sum, pairs):
 
 
 def test_runner_products_are_exact():
-    """Whole-window batching: fast dumps (subsel), slow dumps and beams
-    against host truth over two slow accumulations."""
-    src = SyntheticSource(PCFG, mode="random", seed=5)
-    gulps = [g for _, g in src.stream(20)]
+    """The served driver, one step call a window: fast dumps (subsel),
+    slow dumps and beams against host truth over two slow
+    accumulations."""
+    gulps = [g for _, g in SyntheticSource(PCFG, mode="random",
+                                           seed=5).stream(20)]
     rng = np.random.RandomState(6)
     gr = rng.randint(-8, 9, (CFG.nchan, CFG.nbeam, CFG.ninput))
     gi = rng.randint(-8, 9, (CFG.nchan, CFG.nbeam, CFG.ninput))
     pairs = cs.baselines_to_inputs(
         cs.production_baselines(24, CFG.nstand)).astype(np.int32)
-    runner = XEngineRunner(
-        PCFG, device="cpu", subsel_pairs=pairs,
-        gains=(torch.from_numpy(gr), torch.from_numpy(gi)))
-    products = list(runner.run(enumerate_stream(gulps)))
+    pipe, kept = kept_run(PCFG, SyntheticSource(PCFG, mode="random", seed=5),
+                          20, gains=gr + 1j * gi, pairs=pairs)
     gpw = CFG.acc_len // CFG.ntime_gulp                 # 5 gulps per call
-    assert len(products) == 4
-    assert (runner.ndump_fast, runner.ndump_slow) == (4, 2)
-    for w, prod in enumerate(products):
+    starts = [w * CFG.acc_len for w in range(4)]
+    assert list(kept.vlbi) == list(kept.subsel) == starts
+    assert (pipe.ndump_fast, pipe.ndump_slow) == (4, 2)
+    assert list(kept.slow) == [0, 2 * CFG.acc_len]
+    for w, t in enumerate(starts):
         win = gulps[w * gpw:(w + 1) * gpw]
         _, _, (sr, si) = _truth(win, CFG.nchan_sum, pairs)
-        np.testing.assert_array_equal(prod["subsel"][0], sr)
-        np.testing.assert_array_equal(prod["subsel"][1], si)
+        np.testing.assert_array_equal(kept.subsel[t][0], sr)
+        np.testing.assert_array_equal(kept.subsel[t][1], si)
         block = np.concatenate(win).reshape(-1, CFG.nchan, CFG.nstand, 2)
         br, bi = golden.host_beams(block, gr.astype(np.float32),
                                    gi.astype(np.float32))
         want_v = np.stack([br[:, :2], bi[:, :2]], -1).transpose(2, 0, 1, 3)
-        np.testing.assert_array_equal(prod["vlbi"], want_v)
+        np.testing.assert_array_equal(kept.vlbi[t], want_v)
         hp = host_power(br, bi, CFG.ntime_sum)
-        np.testing.assert_allclose(prod["bf_power"], hp, rtol=1e-4,
+        np.testing.assert_allclose(kept.power[t], hp, rtol=1e-4,
                                    atol=1e-4 * np.abs(hp).max())
         if w % 2:
             vr, vi, _ = _truth(gulps[(w - 1) * gpw:(w + 1) * gpw],
                                CFG.nchan_sum, pairs)
-            np.testing.assert_array_equal(prod["vis_slow"][0], vr)
-            np.testing.assert_array_equal(prod["vis_slow"][1], vi)
-            assert prod["slow_seq0"] == (w - 1) * CFG.acc_len
-        else:
-            assert "vis_slow" not in prod
-
-
-def enumerate_stream(gulps, seq0=0):
-    for k, g in enumerate(gulps):
-        yield seq0 + k * CFG.ntime_gulp, g
+            slow = kept.slow[(w - 1) * CFG.acc_len]
+            np.testing.assert_array_equal(slow[0], vr)
+            np.testing.assert_array_equal(slow[1], vi)
 
 
 def test_runner_per_gulp_fallback_for_partial_accumulation():
-    """A command that lengthens the fast window lands after the batch size
-    was fixed, so the window runs as per-gulp calls with the right
-    flags."""
-    src = SyntheticSource(PCFG, mode="random", seed=7)
-    gulps = [g for _, g in src.stream(12)]
+    """A ``Corr`` command that lengthens the fast window lands after the
+    window's batch size was fixed, so the window runs as per-gulp step
+    calls with the right flags."""
+    gulps = [g for _, g in SyntheticSource(PCFG, mode="random",
+                                           seed=7).stream(12)]
     pairs = np.array([[0, 1], [3, 2]], np.int32)
-    runner = XEngineRunner(PCFG, device="cpu", subsel_pairs=pairs)
-    it = runner.run(enumerate_stream(gulps))
-    first = next(it)                         # gulps 0-4 in one call
-    assert first["fast_seq0"] == 0
-    runner.fast_ctrl.command(start_time=5 * CFG.ntime_gulp,
-                             acc_len=7 * CFG.ntime_gulp)
-    rest = list(it)
-    assert len(rest) == 7                    # gulps 5-11 one by one
-    dumps = [p for p in rest if "subsel" in p]
-    assert len(dumps) == 1 and dumps[0]["fast_seq0"] == 5 * CFG.ntime_gulp
+    store = MemoryStore()
+    pipe, kept = kept_pipeline(
+        PCFG, SyntheticSource(PCFG, mode="random", seed=7), pairs=pairs,
+        store=store)
+    stage_loads = pipe.beam_cmd.stage_loads
+
+    def command_at_start(t):
+        # staged after the first window's commands were applied, so it
+        # lands at the second window, once its batch size is fixed
+        if t == 0:
+            store.put(pipe.corr_cmd.command_key, json.dumps({
+                "cmd": "update", "id": "acc", "val": {"kwargs": {
+                    "start_time": 5 * CFG.ntime_gulp,
+                    "acc_len": 7 * CFG.ntime_gulp}}}))
+        return stage_loads(t)
+
+    pipe.beam_cmd.stage_loads = command_at_start
+    pipe.run(12, timeout_s=300)
+    # gulps 0-4 in one call, then gulps 5-11 one by one
+    assert list(kept.vlbi) == [k * CFG.ntime_gulp
+                               for k in [0, *range(5, 12)]]
+    assert list(kept.subsel) == [0, 5 * CFG.ntime_gulp]
     _, _, (sr, si) = _truth(gulps[5:12], CFG.nchan_sum, pairs)
-    np.testing.assert_array_equal(dumps[0]["subsel"][0], sr)
-    np.testing.assert_array_equal(dumps[0]["subsel"][1], si)
+    np.testing.assert_array_equal(kept.subsel[5 * CFG.ntime_gulp][0], sr)
+    np.testing.assert_array_equal(kept.subsel[5 * CFG.ntime_gulp][1], si)
 
 
 def test_runner_autostart_skips_until_armed():
-    src = SyntheticSource(PCFG, mode="ramp")
-    runner = XEngineRunner(PCFG, device="cpu",
-                           autostartat=2 * CFG.acc_len)
-    products = list(runner.run(src.stream(15)))
-    assert len(products) == 1 and products[0]["seq0"] == 2 * CFG.acc_len
+    pipe, kept = kept_run(PCFG, SyntheticSource(PCFG, mode="ramp"), 15,
+                          autostartat=2 * CFG.acc_len)
+    assert list(kept.vlbi) == [2 * CFG.acc_len] and pipe.ndump_fast == 1

@@ -66,7 +66,7 @@ def test_corr_full_without_destination_sends_nothing():
     assert sink.CorrFullOutput(port_cfg(cfg)).send_matrix_planes(vr, vi, 0, 0, 1) == 0
 
 
-@pytest.mark.parametrize("nrep,t_index", [(1, 0), (1, 3), (2, 1)])
+@pytest.mark.parametrize("nrep,t_index", [(1, 0), (1, 3), (2, 1), (3, 2)])
 def test_checkfile_gate_matches_jax(tmp_path, nrep, t_index):
     """The gate integrates ``nrep`` golden blocks from ``t_index * nrep``,
     looping the file; a corrupted matrix fails it in both packages."""
@@ -93,6 +93,24 @@ def test_checkfile_gate_matches_jax(tmp_path, nrep, t_index):
     assert (out.check_count, out.check_failures) == (2, 1)
     with pytest.raises(ValueError):
         out.check_against_file(vr, vi, cfg.acc_len + 1, 0)
+
+
+def test_product_keeper_keeps_the_newest():
+    """Each product under the spectra index it starts at, at most ``keep``
+    of each kind, the newest; without ``keep`` every one."""
+    bounded, every = sink.ProductKeeper(keep=2), sink.ProductKeeper()
+    for k in (bounded, every):
+        for t in range(0, 30, 10):
+            assert k.send_matrix_planes(t, -t, 0, t, 10) == 0
+            assert k.send_subsel(t + 1, -t - 1, [], 0, t, 10) == 0
+            assert k.send_powers(t + 2, t, 5) == 0
+            assert k.send_voltages(t + 3, t) == 0
+    assert bounded.slow == {10: (10, -10), 20: (20, -20)}
+    assert bounded.subsel == {10: (11, -11), 20: (21, -21)}
+    assert bounded.power == {10: 12, 20: 22}
+    assert bounded.vlbi == {10: 13, 20: 23}
+    assert list(every.slow) == list(every.vlbi) == [0, 10, 20]
+    assert bounded.checkfile is None
 
 
 @pytest.mark.parametrize("nvis_per_packet", [16, 7])
