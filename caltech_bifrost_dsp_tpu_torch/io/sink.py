@@ -288,7 +288,12 @@ class CorrFullOutput:
                            acc_len: int) -> int:
         """Packetize the upper triangle of int32 planes [nchan, ninput,
         ninput], one dual-pol baseline (stand s0, stand s1 >= s0) per
-        packet.  Returns packets sent."""
+        packet.  Returns packets sent.
+
+        The planes are valid until this call returns (on a card the driver
+        fetches the next slow dump into the same page-locked pair); the
+        encoders, the native packetizer, the autocorrelation file and the
+        checkfile comparison keep nothing of them."""
         if self.autos_path:
             self._write_autos_planes(np.asarray(vis_re), spectra_id)
         if self.native_dest is not None:
@@ -523,7 +528,10 @@ class ProductKeeper:
 
     def send_matrix_planes(self, vis_re, vis_im, sync_time, spectra_id,
                            acc_len) -> int:
-        return self._put(self.slow, spectra_id, (vis_re, vis_im))
+        """Keep copies: the planes handed over are valid only until this
+        call returns."""
+        return self._put(self.slow, spectra_id,
+                         (np.array(vis_re), np.array(vis_im)))
 
     def send_subsel(self, subsel_re, subsel_im, baselines, sync_time,
                     spectra_id, acc_len) -> int:

@@ -589,6 +589,7 @@ class XEnginePipeline:
             self.state = xengine.init_state(cfg, self.device)
         self._upload_counts = {"upload_direct": 0, "upload_staged": 0}
         self._ring_lock = None
+        self._slow_host = None
         if self.cuda:
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
@@ -602,7 +603,19 @@ class XEnginePipeline:
             # event after each of the last two steps' launches
             self._launched: deque = deque(maxlen=2)
             self._ring_lock = _page_lock(self.staging.backing, self.device)
+            # the slow dump's two planes come down into this page-locked
+            # pair, kept across dumps: a D2H into pageable memory holds
+            # the H2D stream back
+            shape = (cfg.nchan, cfg.ninput, cfg.ninput)
+            self._slow_host = tuple(
+                torch.empty(shape, dtype=torch.int32, pin_memory=True)
+                for _ in range(2))
         self._count_upload(None)
+        self._nfetch_pinned = 0
+        self.corr_cmd.update_stats({
+            "slow_fetch_pinned": 0,
+            "slow_pinned_nbyte": sum(h.nbytes for h in self._slow_host)
+            if self._slow_host is not None else 0})
         self._stop = threading.Event()
         self._errors: list = []
         self.perf_compute = PerfTimer(self.corr_cmd.perf_proclog,
@@ -1117,7 +1130,12 @@ class XEnginePipeline:
     def _fetch(self, item: dict) -> None:
         """Device products -> numpy, on a stream of their own that waits
         only for the step that made them; a slow dump's two planes inside
-        an ``output.fetch.slow`` span."""
+        an ``output.fetch.slow`` span.
+
+        On a card the slow planes come down into the page-locked pair
+        ``_slow_host`` and the sinks get numpy views of it: they are valid
+        until a sink's ``send_matrix_planes`` call returns, since the next
+        slow dump overwrites them.  A sink that keeps them copies them."""
         keys = [k for k in ("bf_power", "vlbi") if k in item]
         ready = item.pop("ready", None)
 
@@ -1129,8 +1147,8 @@ class XEnginePipeline:
                                        for p in item["subsel"])
             if "vis_slow_planes" in item:
                 with proclog.span("output.fetch.slow"):
-                    item["vis_slow_planes"] = tuple(
-                        p.cpu().numpy() for p in item["vis_slow_planes"])
+                    item["vis_slow_planes"] = self._fetch_slow(
+                        item["vis_slow_planes"])
 
         if ready is None:
             fetch()
@@ -1138,6 +1156,21 @@ class XEnginePipeline:
         with torch.cuda.stream(self._d2h_stream):
             self._d2h_stream.wait_event(ready)
             fetch()
+
+    def _fetch_slow(self, planes) -> tuple[np.ndarray, np.ndarray]:
+        """The slow dump's planes on the host: on a card copied into the
+        page-locked pair on the D2H stream and waited for, else as
+        numpy."""
+        if self._slow_host is None:
+            return tuple(p.cpu().numpy() for p in planes)
+        with torch.cuda.stream(self._d2h_stream):
+            for host, p in zip(self._slow_host, planes):
+                host.copy_(p, non_blocking=True)
+        self._d2h_stream.synchronize()
+        self._nfetch_pinned += 1
+        self.corr_cmd.update_stats(
+            {"slow_fetch_pinned": self._nfetch_pinned})
+        return tuple(h.numpy() for h in self._slow_host)
 
     def _output(self):
         cfg = self.cfg
