@@ -11,8 +11,11 @@ the window.
 products (used to set the limits; the benchmark's own runs never pass
 it).  The last line of standard output is one JSON object; the numbers
 compared, each beside its limit, are the last lines of standard error.
-Exits 1, printing no result, without the CUDA devices the cell asks for
-or when a module of JAX or of the JAX package is loaded.
+A configuration with ``pipelines_per_card`` 2 runs its two pipelines as
+two processes on one card and prints their combined line
+(:mod:`xbench.pair`).  Exits 2, printing no result, for a cell the
+harness refuses; 1 without the CUDA devices the cell asks for or when a
+module of JAX or of the JAX package is loaded.
 """
 
 import time
@@ -50,8 +53,7 @@ def main(argv=None) -> int:
     # the NVIDIA driver's JIT cache, at a fixed path in the checkout
     os.environ.setdefault("CUDA_CACHE_PATH",
                           str(root / ".xbench_cache" / "nv"))
-    from xbench import spec
-    from xbench.cell import run_cell
+    from xbench import pair, spec
 
     try:
         c = spec.cell(args.workload)
@@ -66,7 +68,7 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 1
-    out = run_cell(c, args.seed, args.seconds, bool(args.trace),
+    out = pair.run(c, args.seed, args.seconds, bool(args.trace),
                    control=args.control, t_start=T_START,
                    log=lambda s: print(s, flush=True))
     found = forbidden_modules()

@@ -4,7 +4,9 @@
   mix, chips, ``why``, the end-to-end and per-layer metrics it reports,
   and the limit of each number its comparison gives);
 - ``xbench/configs/<config>.json``: one deployment (the X-engine's sizes,
-  the sinks' limits, the inputs' statistics, the comparison's control);
+  the sinks' limits, the inputs' statistics, the comparison's control,
+  and ``pipelines_per_card``: 1, or 2 for the production layout of two
+  pipeline processes on one card, run by :mod:`xbench.pair`);
 - ``xbench/traffic/<traffic>.json``: one traffic mix, read by
   :mod:`xbench.traffic.pool`, naming its sinks;
 - ``xbench/sinks/<sink>.py``: one product sink (how the harness builds
@@ -26,6 +28,8 @@ ROOT = Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 #: the end-to-end metrics a run takes (``xbench.cell.run_cell``)
 END_TO_END = ("realtime_factor", "device_peak_gib", "setup_s")
+#: the pipeline processes a configuration may run on its card
+PIPELINES_PER_CARD = (1, 2)
 
 
 def _load(kind: str, name: str) -> dict:
@@ -65,22 +69,47 @@ def names(kind: str) -> list[str]:
                   if p.stem != "__init__")
 
 
+def pipelines_per_card(conf: dict) -> int:
+    """The configuration's ``pipelines_per_card`` (1 where it gives
+    none); refuses any value but the whole numbers 1 and 2."""
+    n = conf.get("pipelines_per_card", 1)
+    if type(n) is not int or n not in PIPELINES_PER_CARD:
+        raise ValueError(f"configuration {conf.get('name')!r} gives "
+                         f"pipelines_per_card {n!r}; the harness takes "
+                         f"{' or '.join(map(str, PIPELINES_PER_CARD))}")
+    return n
+
+
+def betters() -> dict:
+    """``better`` ("lower" or "higher") of each metric, by name, as the
+    benchmark's ``BENCHMARK.json`` (beside ``xbench/``) gives it."""
+    b = json.loads((ROOT.parent / "BENCHMARK.json").read_text())
+    return {m["name"]: m["better"] for m in b["end_to_end"] + b["per_layer"]}
+
+
 def cell(name: str) -> dict:
     """The workload ``name`` with its configuration, traffic, sink and
-    metric modules resolved.  Refuses a cell whose traffic names a sink
-    with no module, that names an end-to-end metric the harness does not
-    take or leaves out ``setup_s``, or that gives no limit for a number
-    its comparison gives."""
+    metric modules resolved (:func:`resolve`)."""
+    w = workload(name)
+    return resolve(name, w, config(w["config"]), traffic(w["traffic"]))
+
+
+def resolve(name: str, w: dict, conf: dict, traf: dict) -> dict:
+    """Cell ``name`` of workload ``w``, configuration ``conf`` and traffic
+    ``traf``, with its sink and metric modules.  Refuses a cell whose
+    traffic names a sink with no module, that names an end-to-end metric
+    the harness does not take or leaves out ``setup_s``, whose
+    configuration gives another ``pipelines_per_card`` than 1 or 2, or
+    that gives no limit for a number its comparison gives."""
     from . import sinks
     from .reference import check
 
-    w = workload(name)
+    pipelines_per_card(conf)
     e2e = w["end_to_end"]
     if "setup_s" not in e2e or not set(e2e) <= set(END_TO_END):
         raise ValueError(f"cell {name!r} reports end-to-end {e2e}; the "
                          f"harness takes {', '.join(END_TO_END)}, and "
                          f"every cell setup_s")
-    conf, traf = config(w["config"]), traffic(w["traffic"])
     kinds = {}
     for s in traf.get("sinks", ()):
         try:

@@ -40,10 +40,13 @@ def _union(intervals: list, lo: int, hi: int) -> int:
 
 class Trace:
     """Kernels and copies (name, start_ns, end_ns) of the slice
-    [t0_ns, t1_ns), and the fast windows stepped in it."""
+    [t0_ns, t1_ns), and the fast windows stepped in it, by the
+    ``contexts`` CUDA contexts (processes) that shared the card."""
 
-    def __init__(self, ops: list, t0_ns: int, t1_ns: int, windows: int):
+    def __init__(self, ops: list, t0_ns: int, t1_ns: int, windows: int,
+                 contexts: int = 1):
         self.t0_ns, self.t1_ns, self.windows = t0_ns, t1_ns, windows
+        self.contexts = contexts
         inside = [o for o in ops if t0_ns <= o[1] < t1_ns]
         self.kernels = [o for o in inside if not _COPY.match(o[0])]
         self.copies = [o for o in inside if _COPY.match(o[0])]
@@ -58,6 +61,15 @@ class Trace:
             ops.append((e.name(), e.start_ns(), e.end_ns()))
         return cls(ops, t0_ns, t1_ns, windows)
 
+    @classmethod
+    def merged(cls, traces: list, windows: int) -> "Trace":
+        """One trace of the card from the traces of the processes that
+        share it: their kernels and copies over the slice every one of
+        them profiled, and the ``windows`` they stepped in that slice."""
+        ops = [o for t in traces for o in t.kernels + t.copies]
+        return cls(ops, max(t.t0_ns for t in traces),
+                   min(t.t1_ns for t in traces), windows, len(traces))
+
     @property
     def window_s(self) -> float:
         return (self.t1_ns - self.t0_ns) / 1e9
@@ -70,16 +82,30 @@ class Trace:
 
     def kernel_s(self, patterns=None) -> float:
         """Summed seconds of the kernels whose names match one of the
-        regular expressions ``patterns`` (all kernels when None)."""
+        regular expressions ``patterns`` (all kernels when None).  Where
+        several contexts shared the card, the seconds their intervals
+        cover: the card time-slices between contexts, so a kernel's span
+        takes in the other context's turns, and a sum would count that
+        wall time once for each."""
         pats = [re.compile(p) for p in patterns or ()]
-        return sum(b - a for n, a, b in self.kernels
-                   if not pats or any(p.search(n) for p in pats)) / 1e9
+        iv = [(a, b) for n, a, b in self.kernels
+              if not pats or any(p.search(n) for p in pats)]
+        if self.contexts > 1:
+            return _union(iv, self.t0_ns, self.t1_ns) / 1e9
+        return sum(b - a for a, b in iv) / 1e9
 
     def top_ops(self, n: int = 10) -> list:
-        """[[name, seconds]] of the device operations that took most."""
-        tot: dict = defaultdict(int)
+        """[[name, seconds]] of the device operations that took most (of
+        several contexts, the wall time each name's spans cover, as
+        :meth:`kernel_s` counts it)."""
+        iv: dict = defaultdict(list)
         for name, a, b in self.kernels + self.copies:
-            tot[short_name(name)] += b - a
+            iv[short_name(name)].append((a, b))
+        if self.contexts > 1:
+            tot = {k: _union(v, self.t0_ns, self.t1_ns)
+                   for k, v in iv.items()}
+        else:
+            tot = {k: sum(b - a for a, b in v) for k, v in iv.items()}
         top = sorted(tot.items(), key=lambda kv: -kv[1])[:n]
         return [[k, v / 1e9] for k, v in top]
 
