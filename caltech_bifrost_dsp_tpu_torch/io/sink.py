@@ -80,10 +80,14 @@ class SinkCounters:
     its throttle slept); with spans on, ``send_s`` (seconds in ``send``)
     and ``encode_s`` (the rest of a call less the throttle's sleep).
     :meth:`call` wraps one call of the sink as span ``output.<name>``;
-    :meth:`publish` is the record of the sink's ``perf`` proclog."""
+    :meth:`publish` is the record of the sink's ``perf`` proclog, which
+    also names the ``server`` (1-indexed pipeline) that a beam sink's
+    headers carry, so the monitor shows which pipeline a stream claims
+    to be."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, server: int | None = None):
         self.span_name = "output." + name
+        self.server = server
         self.npkt = self.nbyte = 0
         self.process_time = self.throttle_s = 0.0
         self.encode_s = self.send_s = 0.0
@@ -95,13 +99,16 @@ class SinkCounters:
         return _SinkCall(self, window, send, throttle)
 
     def publish(self) -> dict:
-        return {"acquire_time": 0.0, "reserve_time": 0.0,
-                "process_time": self.process_time,
-                "gbps": (8 * self.nbyte / self.process_time / 1e9
-                         if self.process_time > 0 else 0.0),
-                "npkt": self.npkt, "nbyte": self.nbyte,
-                "throttle_s": self.throttle_s, "encode_s": self.encode_s,
-                "send_s": self.send_s}
+        rec = {"acquire_time": 0.0, "reserve_time": 0.0,
+               "process_time": self.process_time,
+               "gbps": (8 * self.nbyte / self.process_time / 1e9
+                        if self.process_time > 0 else 0.0),
+               "npkt": self.npkt, "nbyte": self.nbyte,
+               "throttle_s": self.throttle_s, "encode_s": self.encode_s,
+               "send_s": self.send_s}
+        if self.server is not None:
+            rec["server"] = self.server
+        return rec
 
 
 class _SinkCall:
@@ -445,14 +452,18 @@ class CorrPartOutput:
 
 
 class PBeamOutput:
-    """Per-beam PBEAM streams; one packet per integration per beam."""
+    """Per-beam PBEAM streams; one packet per integration per beam.
+    ``pipeline_idx`` is the headers' ``server``, the 1-indexed pipeline: by
+    default ``cfg.pipeline_id + 1``, the COR frame number's rule
+    (:func:`_cor_header_fields`)."""
 
     def __init__(self, cfg, senders: dict[int, object] | None = None,
-                 pipeline_idx: int = 1):
+                 pipeline_idx: int | None = None):
         self.cfg = cfg
         self.senders = senders or {}
-        self.pipeline_idx = pipeline_idx
-        self.counters = SinkCounters("pbeam")
+        self.pipeline_idx = (cfg.pipeline_id + 1 if pipeline_idx is None
+                             else pipeline_idx)
+        self.counters = SinkCounters("pbeam", server=self.pipeline_idx)
 
     def send_powers(self, power: np.ndarray, seq0: int, navg: int) -> int:
         """power: f32 [nbeam//2, nblock, nchan, 4]."""
@@ -471,18 +482,20 @@ class PBeamOutput:
 
 class IBeamOutput:
     """VLBI voltage-beam stream, burst-throttled
-    (beamform_vlbi_output_block.py:202-275)."""
+    (beamform_vlbi_output_block.py:202-275).  ``pipeline_idx`` is the
+    headers' ``server``, by default ``cfg.pipeline_id + 1``."""
 
     MAX_BPS = 0.6e9
 
-    def __init__(self, cfg, send=None, pipeline_idx: int = 1,
+    def __init__(self, cfg, send=None, pipeline_idx: int | None = None,
                  npacket_burst: int = 32):
         self.cfg = cfg
         self.send = send
-        self.pipeline_idx = pipeline_idx
+        self.pipeline_idx = (cfg.pipeline_id + 1 if pipeline_idx is None
+                             else pipeline_idx)
         self.throttle = Throttle(self.MAX_BPS,
                                  block_bits=npacket_burst * 8 * 1500)
-        self.counters = SinkCounters("ibeam")
+        self.counters = SinkCounters("ibeam", server=self.pipeline_idx)
 
     def send_voltages(self, vlbi: np.ndarray, seq0: int) -> int:
         """vlbi: f32 [ntime, nchan, nbeam, 2]."""
